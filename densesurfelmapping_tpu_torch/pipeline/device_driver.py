@@ -1,0 +1,242 @@
+"""DeviceResidentMapping: the mapping driver with no steady-state
+device-to-host traffic.
+
+Counterpart of the JAX package's `pipeline/device_driver.py`.  The base
+`SurfelMapping` reproduces the reference's architecture: inactive surfels
+migrate to a host pool (`move_add_surfels`, `surfel_map.cpp:1456-1595`),
+which forces blocking device-to-host reads at every migration.  This driver
+keeps ALL surfels in the device bank and realizes the active/inactive
+lifecycle as a (max_keyframes,) boolean window mask shipped with each frame:
+
+* fuse gating — rows owned by out-of-window keyframes are frozen: never
+  fused, never staleness/occlusion-killed (`ops/fusion.py` pose_mask);
+* "migration" — updating the mask; reactivation on loop revisit is free;
+* loop warp — one whole-bank pass: active rows take the first local
+  pose's warp, frozen rows their own keyframe's warp
+  (`ops/warp.warp_bank_by_pose`);
+* compaction — fixed schedule (config.compact_interval), no reads;
+* stats — never fetched in the feed loop; `sync_stats()` on demand only.
+
+Each frame's whole payload (packed frame + pose/index/window aux) travels in
+ONE host-to-device copy, from pinned memory without blocking the host.
+Semantics match `SurfelMapping` (equivalence-tested); readouts
+(export/eval/checkpoint) transfer the bank once, off the hot path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import SurfelMapConfig
+from ..core.state import bank_to_numpy, pack_aux, pack_frame_with_aux
+from ..ops import warp as warp_ops
+from . import fuse_step
+from .driver import SurfelMapping
+
+
+class DeviceResidentMapping(SurfelMapping):
+    def __init__(self, config: SurfelMapConfig,
+                 kitti_alignment: bool = False, device="cuda",
+                 pipelined: bool = False):
+        super().__init__(config, kitti_alignment, device)
+        self._window_np = np.zeros(config.max_keyframes, bool)
+        self._first_local = 0
+        self._host_rows: Optional[dict] = None   # readout cache
+        # pipelined feed: frame i's host pack runs on a worker thread while
+        # the main thread uploads and enqueues frame i-1.  The fuse of a fed
+        # frame lags the feed by one frame; every bank consumer flushes
+        # first (see _flush_pending callers), so observable semantics are
+        # identical (equivalence-tested).
+        # BUFFER CONTRACT: the driver BORROWS the fed image/depth arrays
+        # until the next driver call (the worker packs them after feed
+        # returns) — callers must allocate fresh frames, never mutate a fed
+        # buffer in place.
+        self._pipelined = bool(pipelined)
+        self._pack_pool = (ThreadPoolExecutor(max_workers=1)
+                           if pipelined else None)
+        self._pending = None   # future of the packed one-buffer payload
+
+    def close(self) -> None:
+        """Complete any in-flight frame and stop the pack worker."""
+        self._flush_pending()
+        if self._pack_pool is not None:
+            self._pack_pool.shutdown()
+
+    def _ensure_keyframe_capacity(self) -> None:
+        """Grow max_keyframes to the next power of two when the pose graph
+        outgrows the window-mask length, instead of crashing.  The mask is
+        the only device-side object shaped by max_keyframes (the bank stores
+        per-row keyframe indices, unbounded)."""
+        if len(self.graph) <= self.config.max_keyframes:
+            return
+        # a pending pipelined frame holds an aux packed at the OLD length
+        self._flush_pending()
+        new_p = self.config.max_keyframes
+        while new_p < len(self.graph):
+            new_p *= 2
+        self.config = dataclasses.replace(self.config, max_keyframes=new_p)
+        # grow the live mask too: a loop warp can arrive before the next
+        # _move_add_surfels rebuilds it at the new length
+        w = np.zeros(new_p, bool)
+        w[:len(self._window_np)] = self._window_np
+        self._window_np = w
+
+    # ------------------------------------------------------------------
+    # migration == window-mask update (no device work at all)
+    # ------------------------------------------------------------------
+    def _move_add_surfels(self, ref_index: int) -> None:
+        with self.timer.stage("bfs"):
+            window = self.graph.driftfree_window(
+                ref_index, self.config.drift_free_poses)
+        self._ensure_keyframe_capacity()
+        self.local_indices = set(window)
+        # fresh allocation every frame: a pipelined pack of the previous
+        # frame may still read the previous mask
+        mask = np.zeros(self.config.max_keyframes, bool)
+        mask[list(window)] = True
+        self._window_np = mask
+        self._first_local = min(window) if window else 0
+
+    # ------------------------------------------------------------------
+    # fuse with window gating; fixed-schedule compaction; no stat reads
+    # ------------------------------------------------------------------
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy of the packed payload; on a GPU it is
+        staged in pinned memory and does not block the host."""
+        t = torch.from_numpy(buf)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
+        aux = pack_aux(pose, ref_index, self._window_np)
+        if self._pipelined:
+            # submit THIS frame's pack to the worker, then run the PREVIOUS
+            # frame: the pack overlaps the upload and the enqueue
+            fut = self._pack_pool.submit(pack_frame_with_aux, self.config,
+                                         image, depth, aux)
+            self._flush_pending()
+            self._pending = fut
+            return
+        with self.timer.stage("pack"):
+            buf = pack_frame_with_aux(self.config, image, depth, aux)
+        self._fuse_packed(buf)
+
+    def _fuse_packed(self, buf: np.ndarray) -> None:
+        with self.timer.stage("dispatch"):
+            _, stats = fuse_step.fuse_frame_onebuf(self.config, self.bank,
+                                                   self._upload(buf))
+        self._stats_dev = stats
+        self._host_rows = None
+        self.frames_fused += 1
+        if self.frames_fused % self.config.compact_interval == 0:
+            self._do_compact()
+
+    def _flush_pending(self) -> None:
+        """Run the one in-flight pipelined frame, if any.  Called by every
+        consumer of `self.bank` (warp, readouts, checkpoint, stats) and
+        before any event that must be ordered after the frame."""
+        if self._pending is None:
+            return
+        fut = self._pending
+        self._pending = None
+        with self.timer.stage("pack"):
+            buf = fut.result()
+        self._fuse_packed(buf)
+
+    def flush(self) -> None:
+        """Public barrier: complete any pipelined in-flight frame."""
+        self._flush_pending()
+
+    def sync_stats(self):
+        self._flush_pending()
+        return super().sync_stats()
+
+    # ------------------------------------------------------------------
+    # loop warp: one whole-bank device pass
+    # ------------------------------------------------------------------
+    def _warp_surfels(self) -> None:
+        self._flush_pending()   # warp must see every fed frame fused
+        # poses can run ahead of fused frames, so capacity may need to grow
+        # here, not just on the fuse path
+        self._ensure_keyframe_capacity()
+        warps, moved = self.graph.pose_warps()
+        P = self.config.max_keyframes
+        wstack = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+        mstack = np.zeros(P, bool)
+        n = len(warps)
+        wstack[:n] = warps.astype(np.float32)
+        mstack[:n] = moved
+        warp_ops.warp_bank_by_pose(
+            self.bank, self._to_device(wstack), self._to_device(mstack),
+            self._to_device(self._window_np), self._first_local)
+        self._host_rows = None
+        self.graph.commit_loop_poses()
+
+    # ------------------------------------------------------------------
+    # readouts: one bank transfer, split by the window mask
+    # ------------------------------------------------------------------
+    def _rows_host(self) -> dict:
+        self._flush_pending()
+        if self._host_rows is None:
+            self._host_rows = bank_to_numpy(self.bank)
+        return self._host_rows
+
+    def _is_active_row(self, rows: dict) -> np.ndarray:
+        lu = rows["last_update"]
+        ok = (lu >= 0) & (lu < self.config.max_keyframes)
+        return ok & self._window_np[np.clip(lu, 0,
+                                            self.config.max_keyframes - 1)]
+
+    def active_surfels(self, min_updates=None) -> dict:
+        if min_updates is None:
+            min_updates = self.config.stable_update_times
+        rows = self._rows_host()
+        sel = (rows["update_times"] >= min_updates) \
+            & self._is_active_row(rows)
+        return {k: v[sel] for k, v in rows.items()}
+
+    def inactive_surfels(self) -> dict:
+        rows = self._rows_host()
+        sel = (rows["update_times"] > 0) & ~self._is_active_row(rows)
+        return {k: v[sel] for k, v in rows.items()}
+
+    def metrics(self) -> Dict[str, float]:
+        self._flush_pending()
+        out = super().metrics()
+        rows = self._rows_host()
+        live = rows["update_times"] > 0
+        active = self._is_active_row(rows) & live
+        out["active_count"] = int(active.sum())
+        out["inactive_count"] = int((live & ~active).sum())
+        return out
+
+    # ------------------------------------------------------------------
+    # checkpoint/resume: bank + graph (no pool state); the JAX package's
+    # DeviceResidentMapping writes and reads the same .npz
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        rows = self._rows_host()
+        data = {f"bank_{k}": v for k, v in rows.items()}
+        data["bank_count"] = np.int64(len(rows["color"]))
+        data.update(self._graph_arrays())
+        np.savez_compressed(path, **data)
+
+    def load_checkpoint(self, path: str) -> None:
+        self._pending = None   # restored state supersedes in-flight work
+        z = np.load(path, allow_pickle=False)
+        self._load_bank(z)
+        self._load_graph(z)
+        self._ensure_keyframe_capacity()
+        mask = np.zeros(self.config.max_keyframes, bool)
+        mask[sorted(self.local_indices)] = True
+        self._window_np = mask
+        self._first_local = min(self.local_indices) \
+            if self.local_indices else 0
+        self._host_rows = None
+

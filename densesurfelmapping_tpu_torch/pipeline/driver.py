@@ -1,0 +1,451 @@
+"""SurfelMapping: the host orchestrator around the fuse step.
+
+Counterpart of the JAX package's `pipeline/driver.py` (the reference's
+`SurfelMap` class, `surfel_map.h:48-148`): frame/pose buffering and timestamp
+sync (`synchronize_msgs`, `surfel_map.cpp:103-203`), pose/loop ingestion
+(`orb_results_input`, :205-365), active-window migration to a host pool
+(`move_add_surfels`, :1456-1595), loop-closure warping (`warp_surfels`,
+:791-824), readouts and checkpoint/resume.
+
+The pose graph and buffers are tiny and live on the host; every per-surfel /
+per-pixel operation runs on the driver's device.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SurfelMapConfig
+from ..core import geometry
+from ..core.state import (FIELDS, FrameInput, SurfelBank, bank_from_numpy,
+                          bank_to_numpy, compact_frame, pad_frame)
+from ..ops import fusion, migration, warp as warp_ops
+from ..utils.timing import StageTimer
+from . import fuse_step
+from .inactive_pool import InactivePool
+from .pose_graph import PoseGraph
+
+
+class SurfelMapping:
+    """End-to-end mapping system: feed images/depths/poses, read out maps.
+
+    Input schema matches the reference's topic contract: intensity image +
+    metric depth (0 = invalid) + per-frame pose with keyframe flag,
+    reference-keyframe index, the full loop-corrected keyframe path, and
+    loop-edge index pairs.
+
+    device: where the bank lives and the fuse step runs.  The default
+    "cuda" raises on a machine without a GPU rather than running on the CPU.
+    """
+
+    def __init__(self, config: SurfelMapConfig, kitti_alignment: bool = False,
+                 device="cuda"):
+        self.config = config
+        self.device = torch.device(device)
+        self.graph = PoseGraph()
+        self.pool = InactivePool()
+        self.bank: SurfelBank = SurfelBank.empty(config.surfel_capacity,
+                                                 self.device)
+        self.local_indices: Set[int] = set()
+        self.timer = StageTimer()
+
+        self._kitti_alignment = kitti_alignment
+        self._alignment: Optional[np.ndarray] = None
+
+        # (stamp, image) / (stamp, depth) / (stamp, rel_pose, ref_index)
+        self.image_buffer = collections.deque()
+        self.depth_buffer = collections.deque()
+        self.pose_buffer = collections.deque()
+        self.stamp_tolerance = 1e-6
+
+        self.frames_fused = 0
+        self.compactions = 0
+        self.last_stats: Dict[str, int] = {}   # refreshed every stats sync
+        self._stats_dev: Dict[str, torch.Tensor] = {}
+        self.max_buffered = 5000   # reference queue depth (ros_node.cpp:24)
+        self.dropped = collections.Counter()
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # inputs (reference: image_input/depth_input/orb_results_input)
+    # ------------------------------------------------------------------
+    def _check_frame(self, kind: str, arr: np.ndarray) -> None:
+        """Shape validation up front (failure detection the reference
+        lacks)."""
+        expect = (self.config.height, self.config.width)
+        if np.shape(arr) != expect:
+            raise ValueError(
+                f"{kind} shape {np.shape(arr)} != camera {expect}")
+
+    def feed_image(self, stamp: float, image: np.ndarray) -> None:
+        self._check_frame("image", image)
+        self.image_buffer.append((float(stamp), image))
+        self._trim_buffers()
+        self._synchronize()
+
+    def feed_depth(self, stamp: float, depth: np.ndarray) -> None:
+        self._check_frame("depth", depth)
+        depth = np.asarray(depth)
+        finite = np.isfinite(depth)
+        if not finite.all():
+            depth = np.where(finite, depth, 0.0)
+            self.dropped["nonfinite_depth_px"] += int((~finite).sum())
+        self.depth_buffer.append((float(stamp), depth))
+        self._trim_buffers()
+        self._synchronize()
+
+    def _trim_buffers(self) -> None:
+        """Bound buffer growth (the reference used 5000-deep ROS queues,
+        `ros_node.cpp:24-31`); oldest entries drop first."""
+        for name, buf in (("images", self.image_buffer),
+                          ("depths", self.depth_buffer),
+                          ("poses", self.pose_buffer)):
+            while len(buf) > self.max_buffered:
+                buf.popleft()
+                self.dropped[name] += 1
+
+    def feed_pose(self, stamp: float, pose: np.ndarray,
+                  loop_path: Optional[Sequence[np.ndarray]] = None,
+                  loop_edges: Sequence[Tuple[int, int]] = (),
+                  is_keyframe: bool = False,
+                  reference_index: Optional[int] = None) -> None:
+        """Pose/loop ingestion (`orb_results_input`, surfel_map.cpp:205-365).
+
+        pose: 4x4 Twc of the CURRENT frame. loop_path: loop-corrected poses
+        of ALL keyframes so far (same raw frame as pose). loop_edges:
+        keyframe index pairs. reference_index: this frame's reference
+        keyframe (defaults to the newest; a new keyframe references itself).
+        """
+        pose = np.array(pose, np.float64)
+        # a NaN/Inf or non-rigid pose would poison the whole pose graph:
+        # drop it instead
+        if pose.shape != (4, 4) or not np.isfinite(pose).all():
+            self.dropped["invalid_pose"] += 1
+            return
+        if abs(np.linalg.det(pose[:3, :3]) - 1.0) > 0.1:
+            self.dropped["invalid_pose"] += 1
+            return
+        if self._kitti_alignment:
+            if self._alignment is None:
+                self._alignment = geometry.kitti_alignment(pose)
+            pose = self._alignment @ pose
+            if loop_path is not None:
+                loop_path = [self._alignment @ np.asarray(p, np.float64)
+                             for p in loop_path]
+
+        loop_changed = False
+        if loop_path is not None and len(self.graph) > 0:
+            loop_changed = self.graph.update_loop_path(list(loop_path))
+        if loop_changed:
+            with self.timer.stage("warp"):
+                self._warp_surfels()
+
+        if is_keyframe or len(self.graph) == 0:
+            # link the new keyframe to its reference; default to the newest
+            # existing keyframe
+            link_to = None
+            if len(self.graph) > 0:
+                link_to = (reference_index if reference_index is not None
+                           else len(self.graph) - 1)
+            new_index = self.graph.add_keyframe(pose, stamp, link_to)
+            self.local_indices.add(new_index)
+            if reference_index is None:
+                reference_index = new_index
+        if reference_index is None:
+            reference_index = len(self.graph) - 1
+
+        # edges are recorded AFTER keyframe insertion, so same-message edges
+        # naming the new keyframe register immediately (a divergence from
+        # the reference, surfel_map.cpp:289-316 running before :318-353)
+        self.graph.add_loop_edges(loop_edges)
+
+        ref_pose = self.graph.keyframes[int(reference_index)].cam_pose
+        rel = geometry.invert_se3(ref_pose) @ pose
+        self.pose_buffer.append((float(stamp), rel, int(reference_index)))
+        self._synchronize()
+
+    # ------------------------------------------------------------------
+    # sync + fuse (reference: synchronize_msgs, surfel_map.cpp:103-203)
+    # ------------------------------------------------------------------
+    def _match_front(self, buffer, stamp, name):
+        while buffer:
+            t = buffer[0][0]
+            if t < stamp - self.stamp_tolerance:
+                buffer.popleft()
+                self.dropped[name] += 1   # pre-pose data, never fused
+            elif abs(t - stamp) <= self.stamp_tolerance:
+                return buffer[0]
+            else:
+                return None
+        return None
+
+    def _synchronize(self) -> None:
+        while self.pose_buffer:
+            stamp, rel, ref = self.pose_buffer[0]
+            img = self._match_front(self.image_buffer, stamp, "images")
+            dep = self._match_front(self.depth_buffer, stamp, "depths")
+            if img is None or dep is None:
+                return
+            fuse_pose = self.graph.keyframes[ref].cam_pose @ rel
+            with self.timer.stage("migrate"):
+                self._move_add_surfels(ref)
+            with self.timer.stage("fuse"):
+                self._fuse_frame(img[1], dep[1], fuse_pose, ref)
+            self.pose_buffer.popleft()
+            self.image_buffer.popleft()
+            self.depth_buffer.popleft()
+
+    def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
+        pose_dev = self._to_device(np.asarray(pose, np.float32).reshape(4, 4))
+        index = self._to_device(np.array(ref_index, np.int32))
+        if self.config.compact_upload:
+            ci, cd = compact_frame(self.config, image, depth)
+            _, stats = fuse_step.fuse_frame_compact(
+                self.config, self.bank, self._to_device(ci),
+                self._to_device(cd), pose_dev, index)
+        else:
+            pi, pd = pad_frame(self.config, np.asarray(image, np.float32),
+                               np.asarray(depth, np.float32))
+            _, stats = fuse_step.fuse_frame(self.config, self.bank, FrameInput(
+                image=self._to_device(pi), depth=self._to_device(pd),
+                pose=pose_dev, frame_index=index))
+        self._fuse_epilogue(stats)
+
+    def _fuse_epilogue(self, stats) -> None:
+        self._stats_dev = stats   # device values; synced on stats frames
+        self.frames_fused += 1
+        if self.frames_fused % self.config.stats_interval == 0:
+            self.sync_stats()
+            self._maybe_compact()
+
+    def sync_stats(self) -> Dict[str, int]:
+        """Blocking device->host fetch of the latest fuse-step stats."""
+        if self._stats_dev:
+            self.last_stats = {k: int(v) for k, v in self._stats_dev.items()}
+        return self.last_stats
+
+    def _maybe_compact(self) -> None:
+        """Repack the bank when dead holes exceed the slack or the tail
+        lacks headroom for the frames until the next stats sync."""
+        st = self.last_stats
+        count = int(self.bank.count)
+        live = st.get("n_live", 0) + st.get("n_new", 0)
+        slab = self.config.new_capacity
+        margin = (self.config.stats_interval + 1) * slab \
+            + self.config.migration_buffer
+        need_room = count > self.bank.capacity - margin
+        if (count - live > self.config.compaction_slack) or need_room \
+                or st.get("n_dropped", 0) > 0:
+            self._do_compact()
+
+    def _do_compact(self) -> None:
+        fusion.compact_bank(self.bank)
+        self.compactions += 1
+
+    # ------------------------------------------------------------------
+    # active window migration (reference: move_add_surfels)
+    # ------------------------------------------------------------------
+    def _move_add_surfels(self, ref_index: int) -> None:
+        to_add, to_remove = self.graph.add_remove_sets(
+            ref_index, self.config.drift_free_poses, self.local_indices)
+        buf_size = self.config.migration_buffer
+
+        if to_remove:
+            remaining = list(to_remove)
+            while remaining:
+                chunk = remaining[:migration.MAX_REMOVE_POSES]
+                ids = np.full(migration.MAX_REMOVE_POSES, -1, np.int32)
+                ids[:len(chunk)] = chunk
+                while True:
+                    buf, n = migration.extract_by_pose(
+                        self.bank, self._to_device(ids), buf_size)
+                    n = int(n)
+                    if n == 0:
+                        break
+                    host = {k: v[:n].cpu().numpy() for k, v in buf.items()}
+                    for pose_id in chunk:
+                        sel = host["last_update"] == pose_id
+                        if sel.any():
+                            self.pool.attach(
+                                pose_id, {k: v[sel] for k, v in host.items()},
+                                int(sel.sum()))
+                    if n < buf_size:
+                        break
+                remaining = remaining[migration.MAX_REMOVE_POSES:]
+            self.local_indices -= set(to_remove)
+
+        if to_add:
+            self.local_indices |= set(to_add)
+            slab = self.pool.detach(to_add)
+            m = len(slab["color"])
+            if int(self.bank.count) > self.bank.capacity - buf_size:
+                self._do_compact()
+            for off in range(0, m, buf_size):
+                part = {k: v[off:off + buf_size] for k, v in slab.items()}
+                n = len(part["color"])
+                padded = {}
+                for k in FIELDS:
+                    arr = np.zeros((buf_size,) + part[k].shape[1:],
+                                   part[k].dtype)
+                    arr[:n] = part[k]
+                    padded[k] = self._to_device(arr)
+                mask = torch.arange(buf_size, device=self.device) < n
+                fusion.append_new(self.bank, padded, mask)
+
+    # ------------------------------------------------------------------
+    # loop-closure warp (reference: warp_surfels)
+    # ------------------------------------------------------------------
+    def _warp_pool_np(self, pos, nrm, owner, warps):
+        new_p, new_n = warp_ops.warp_pool(
+            self._to_device(pos), self._to_device(nrm),
+            self._to_device(owner), self._to_device(warps))
+        return new_p.cpu().numpy(), new_n.cpu().numpy()
+
+    def _warp_surfels(self) -> None:
+        warps, moved = self.graph.pose_warps()
+        # active surfels: single warp from the FIRST local pose
+        # (surfel_map.cpp:808-813)
+        if self.local_indices:
+            first = min(self.local_indices)
+            if first < len(moved) and moved[first]:
+                warp_ops.warp_active(self.bank, self._to_device(
+                    warps[first].astype(np.float32)))
+        self.pool.warp(warps, moved, self._warp_pool_np)
+        self.graph.commit_loop_poses()
+
+    # ------------------------------------------------------------------
+    # map readout (reference: publish_* / save_*)
+    # ------------------------------------------------------------------
+    def active_surfels(self, min_updates: Optional[int] = None) -> dict:
+        """Host copy of live active surfels (update_times >= min_updates,
+        default the config's stable threshold — publish_active_pointcloud /
+        save_cloud gating)."""
+        if min_updates is None:
+            min_updates = self.config.stable_update_times
+        rows = bank_to_numpy(self.bank)
+        sel = rows["update_times"] >= min_updates
+        return {k: v[sel] for k, v in rows.items()}
+
+    def inactive_surfels(self) -> dict:
+        return self.pool.all_surfels()
+
+    def map_surfels(self) -> dict:
+        """Stable active + all inactive surfels (save_cloud semantics,
+        `surfel_map.cpp:1153-1174`)."""
+        act = self.active_surfels()
+        ina = self.inactive_surfels()
+        return {k: np.concatenate([act[k], ina[k]]) for k in FIELDS}
+
+    def fusion_path(self) -> List[np.ndarray]:
+        """Loop-corrected poses of every keyframe (`fusion_loop_path`)."""
+        return [kf.loop_pose.copy() for kf in self.graph.keyframes]
+
+    def driftfree_path(self) -> List[np.ndarray]:
+        """Poses of the current active (drift-free) window
+        (`driftfree_loop_path`)."""
+        return [self.graph.keyframes[i].loop_pose.copy()
+                for i in sorted(self.local_indices)
+                if i < len(self.graph.keyframes)]
+
+    def loop_edges(self) -> List[Tuple[int, int]]:
+        """Deduplicated loop/covisibility edges (`loop_marker` content)."""
+        return [(i, j) for i, kf in enumerate(self.graph.keyframes)
+                for j in kf.linked if j > i]
+
+    def metrics(self) -> Dict[str, float]:
+        """Observability snapshot: throughput and drop counters, buffer
+        depths, stage means (ms), memory."""
+        out: Dict[str, float] = {
+            "frames_fused": self.frames_fused,
+            "keyframes": len(self.graph),
+            "active_count": int(self.bank.count),
+            "inactive_count": len(self.pool),
+            "buffered_images": len(self.image_buffer),
+            "buffered_depths": len(self.depth_buffer),
+            "buffered_poses": len(self.pose_buffer),
+            "memory_kb": self.memory_usage_kb(),
+        }
+        for k, v in self.dropped.items():
+            out[f"dropped_{k}"] = v
+        for k, v in self.timer.means_ms().items():
+            out[f"stage_ms_{k}"] = v
+        return out
+
+    def memory_usage_kb(self) -> float:
+        """`calculate_memory_usage` (surfel_map.cpp:895-904) equivalent."""
+        bank_bytes = sum(t.numel() * t.element_size()
+                         for _, t in self.bank.field_arrays())
+        return (bank_bytes + self.pool.memory_bytes()) / 1024.0
+
+    # ------------------------------------------------------------------
+    # checkpoint/resume (the reference has none)
+    # ------------------------------------------------------------------
+    def _graph_arrays(self) -> dict:
+        g = self.graph
+        data = {}
+        data["kf_cam"] = np.stack([k.cam_pose for k in g.keyframes]) \
+            if len(g) else np.zeros((0, 4, 4))
+        data["kf_loop"] = np.stack([k.loop_pose for k in g.keyframes]) \
+            if len(g) else np.zeros((0, 4, 4))
+        data["kf_stamp"] = np.array([k.stamp for k in g.keyframes])
+        edges = [(i, j) for i, k in enumerate(g.keyframes) for j in k.linked]
+        data["kf_edges"] = np.array(edges, np.int64).reshape(-1, 2)
+        data["local_indices"] = np.array(sorted(self.local_indices), np.int64)
+        data["frames_fused"] = np.int64(self.frames_fused)
+        if self._alignment is not None:
+            data["alignment"] = self._alignment
+        return data
+
+    def _load_graph(self, z) -> None:
+        self.graph = PoseGraph()
+        for cam, loop, stamp in zip(z["kf_cam"], z["kf_loop"], z["kf_stamp"]):
+            idx = self.graph.add_keyframe(cam, float(stamp))
+            self.graph.keyframes[idx].loop_pose = np.array(loop)
+        for i, j in z["kf_edges"]:
+            kf = self.graph.keyframes[int(i)]
+            if int(j) not in kf.linked:
+                kf.linked.append(int(j))
+        self.local_indices = set(int(i) for i in z["local_indices"])
+        self.frames_fused = int(z["frames_fused"])
+        if "alignment" in z:
+            self._alignment = np.array(z["alignment"])
+
+    def _load_bank(self, z) -> None:
+        n = int(z["bank_count"])
+        self.bank = bank_from_numpy({k: z[f"bank_{k}"] for k in FIELDS}, n,
+                                    self.device, self.config.surfel_capacity)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Bank, pose graph and host pool as one .npz (the JAX package's
+        format)."""
+        data = {f"bank_{k}": v for k, v in bank_to_numpy(self.bank).items()}
+        data["bank_count"] = np.int64(len(data["bank_color"]))
+        data.update(self._graph_arrays())
+        data["pool_keys"] = np.array(sorted(self.pool.slabs), np.int64)
+        for k in FIELDS:
+            slabs = [self.pool.slabs[i][k] for i in sorted(self.pool.slabs)]
+            data[f"pool_{k}"] = (np.concatenate(slabs) if slabs else
+                                 np.zeros((0, 3) if k in ("position", "normal")
+                                          else (0,), np.float32))
+        data["pool_counts"] = np.array(
+            [len(self.pool.slabs[i]["color"])
+             for i in sorted(self.pool.slabs)], np.int64)
+        np.savez_compressed(path, **data)
+
+    def load_checkpoint(self, path: str) -> None:
+        z = np.load(path, allow_pickle=False)
+        self._load_bank(z)
+        self._load_graph(z)
+        self.pool = InactivePool()
+        off = 0
+        for key, cnt in zip(z["pool_keys"], z["pool_counts"]):
+            slab = {k: z[f"pool_{k}"][off:off + int(cnt)].copy()
+                    for k in FIELDS}
+            self.pool.slabs[int(key)] = slab
+            off += int(cnt)
