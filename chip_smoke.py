@@ -1,18 +1,29 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. device  - a CUDA card is required; its name and power limit are printed
-  2. build   - the SLIC kernels (densesurfelmapping_tpu_torch/csrc/slic.cu)
-               are built with nvcc and loaded
-  3. kernels - each kernel against its plain PyTorch twin on a KITTI-size
+  2. build   - the SLIC and SGM kernels (densesurfelmapping_tpu_torch/csrc/
+               slic.cu, sgm.cu) are built with nvcc, in parallel, and loaded
+  3. kernels - each SLIC kernel against its plain PyTorch twin on a KITTI-size
                frame of the synthetic scene, with the time per launch of both
-  4. drive   - DeviceResidentMapping over 60 KITTI-size frames, steady state
-               under torch.cuda.set_sync_debug_mode("error"): launch counts,
-               no NaN, the ground-plane gate, compaction, the loop warp
-  5. rate    - frames/s of the drive, unpipelined and pipelined
-The last line is the JSON object {"ok": true, "device": {...}}.
+  4. sgm     - each SGM kernel against its plain twin on a KITTI-size stereo
+               pair (bitwise, f32 and bf16 carries), the whole disparity map
+               with and without the kernels, and the time per launch of both
+  5. drive   - depth-fed DeviceResidentMapping over 60 KITTI-size frames,
+               steady state under torch.cuda.set_sync_debug_mode("error"):
+               launch counts, no NaN, the ground-plane gate, compaction, the
+               loop warp
+  6. rate    - frames/s of the depth-fed drive, unpipelined and pipelined
+  7. stereo  - stereo-resident DeviceResidentMapping (the CLI's synthetic
+               --stereo --sgm flow) over 30 KITTI-size pairs under the sync
+               check: B5/B6 once per frame, no NaN, compaction, the depth
+               check against the rendered depth; the fused-census, plain and
+               materialized-volume (B4) matchers build the same map
+  8. profile - device ms/frame of the stereo drive by fuse-step scope
+The last lines are the {"kernels": [...]} JSON, the nvidia-smi line, and the
+JSON object {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -27,6 +38,19 @@ import torch
 GROUND_GATE_M = 5e-3     # mean |y - ground| of stable ground surfels
 WARP_TOL_M = 1e-4
 N_FRAMES = 60
+N_STEREO_FRAMES = 30
+BASELINE_M = 0.54        # KITTI stereo baseline (the CLI's --baseline)
+# Depth check of one stereo frame against the rendered depth (1-25 m).  The
+# JAX package's compute_depth_stereo on the same frame at a quarter of KITTI
+# size on the CPU reads coverage 0.6042 and median relative error 0.02357
+# (tests/test_torch_stereo_fuse.py::test_depth_check_bounds_from_jax): the
+# error bound is 1.5x that value (no looser than 5%), the coverage floor
+# that value / 1.5.
+DEPTH_REL_ERR_BOUND = 0.03535
+DEPTH_COVERAGE_FLOOR = 0.4028
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor op/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -66,15 +90,33 @@ def phase_device() -> str:
     return smi
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the f32 peak."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
 def phase_build() -> None:
-    from densesurfelmapping_tpu_torch.ops.cuda import build, slic
-    t0 = time.perf_counter()
-    slic._lib()
-    say("build", f"slic.cu built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in build.build_logs.get("slic", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say("build", line.strip())
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from densesurfelmapping_tpu_torch.ops.cuda import build, sgm, slic
+
+    def timed(load):
+        t0 = time.perf_counter()
+        load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = {name: pool.submit(timed, mod._lib)
+                for name, mod in (("slic", slic), ("sgm", sgm))}
+        secs = {name: f.result() for name, f in futs.items()}
+    for name in ("slic", "sgm"):
+        say("build", f"{name}.cu built and loaded in {secs[name]:.1f} s")
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                say("build", line.strip())
 
 
 def scene_frame(config, pose, device):
@@ -100,6 +142,7 @@ def phase_kernels(config, device) -> dict:
     asg0 = torch.where(g["pixel_valid"], 0, -1).to(torch.int32)
     out = {}
 
+    hw, n_seeds = image.numel(), seeds.x.numel()
     # B1: one sweep from the initial state: assignment and claims exact
     args = (config, image, inv_depth, asg0, seeds.x, seeds.y,
             seeds.mean_intensity, seeds.mean_depth, seeds.stable)
@@ -112,7 +155,11 @@ def phase_kernels(config, device) -> dict:
     out["slic_assign"] = dict(
         max_abs_err=float((ka - pa).abs().max()),
         ms=cuda_time_ms(lambda: K.slic_assign(*args)),
-        plain_ms=cuda_time_ms(lambda: S.assign_sweep(*args)))
+        plain_ms=cuda_time_ms(lambda: S.assign_sweep(*args)),
+        # reads image, inverse depth, assignment, five seed planes and the
+        # stable flags; writes the assignment and the claims; ~20 f32
+        # operations per candidate, 9 candidates per pixel
+        **bound(4 * hw * 4 + n_seeds * (5 * 4 + 1 + 4), hw * 9 * 20))
     say("kernels", f"slic_assign: assignment and claims exact "
         f"({ka.numel()} px, {kc.numel()} seeds)")
 
@@ -124,7 +171,10 @@ def phase_kernels(config, device) -> dict:
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     out["slic_centroid"] = dict(
         max_abs_err=err, ms=cuda_time_ms(lambda: K.slic_centroid(*sargs)),
-        plain_ms=cuda_time_ms(lambda: S.seed_sums(*sargs)))
+        plain_ms=cuda_time_ms(lambda: S.seed_sums(*sargs)),
+        # reads image, depth, assignment; writes six seed planes; six adds
+        # per pixel
+        **bound(3 * hw * 4 + 6 * n_seeds * 4, 6 * hw))
     say("kernels", f"slic_centroid: six sums within rtol 1e-5 / atol 1e-3 "
         f"(max abs err {err:.3g})")
 
@@ -137,7 +187,10 @@ def phase_kernels(config, device) -> dict:
     require(bool(torch.isfinite(km).all()), "slic_huber: non-finite mean")
     out["slic_huber"] = dict(
         max_abs_err=err, ms=cuda_time_ms(lambda: K.slic_huber(*hargs)),
-        plain_ms=cuda_time_ms(lambda: S.huber_mean_depth(*hargs)))
+        plain_ms=cuda_time_ms(lambda: S.huber_mean_depth(*hargs)),
+        # reads depth, assignment, the mean and the latch; writes the mean;
+        # five steps of ~8 operations per pixel
+        **bound(2 * hw * 4 + n_seeds * (4 + 1 + 4), 5 * 8 * hw))
     say("kernels", f"slic_huber: mean depth within 1e-4 m "
         f"(max abs err {err:.3g} m, {int((n > 0).sum())} seeds with pixels)")
 
@@ -151,6 +204,153 @@ def phase_kernels(config, device) -> dict:
     for name, rec in out.items():
         say("kernels", f"{name}: {1e3 * rec['ms']:.1f} us/launch, plain "
             f"twin {1e3 * rec['plain_ms']:.1f} us")
+    return out
+
+
+def stereo_pair(config, pose):
+    """Left/right u8 renders of the synthetic scene (the right camera
+    BASELINE_M along the camera x axis, as the CLI's --stereo) and the
+    left view's rendered depth."""
+    from densesurfelmapping_tpu_torch.io import synthetic
+    scene = synthetic.default_scene()
+    rp = np.array(pose, np.float64).copy()
+    rp[:3, 3] += rp[:3, 0] * BASELINE_M
+    li, ld = scene.render(config, pose)
+    ri, _ = scene.render(config, rp)
+    u8 = lambda x: np.clip(x, 0, 255).astype(np.uint8)   # noqa: E731
+    return u8(li), u8(ri), ld
+
+
+def sgm_config():
+    """The CLI's `--sgm` matcher: census cost, 8 paths, fused census."""
+    from densesurfelmapping_tpu_torch.models.stereo import StereoConfig
+    return StereoConfig(max_disparity=128, aggregation="sgm")
+
+
+def phase_sgm_kernels(device) -> dict:
+    """B4-B6 against their plain twins on a KITTI-size pair; returns the
+    per-kernel record."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.models import stereo as S
+    from densesurfelmapping_tpu_torch.ops import sgm as P
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as K
+
+    cfg = kitti_config()
+    scfg = sgm_config()
+    li, ri, _ = stereo_pair(cfg, synthetic.forward_trajectory(
+        N_STEREO_FRAMES + 3, step=0.4)[0])
+    left = torch.from_numpy(li).to(device).float()
+    right = torch.from_numpy(ri).to(device).float()
+    cl, cr = S._census(left, scfg.census_radius), S._census(
+        right, scfg.census_radius)
+    min_d = scfg.min_disparity
+    n_d = scfg.max_disparity - min_d
+    p1, p2 = scfg.sgm_p1, scfg.sgm_p2
+    rolls = (0, 1, -1)
+    h, w = cl.shape
+    cells = n_d * h * w
+    out = {}
+
+    def same(name, a, b):
+        require(a.shape == b.shape and bool(torch.equal(a, b)),
+                f"{name}: kernel differs from its plain twin (max abs err "
+                f"{float((a - b).abs().max())})")
+
+    # B6, B5 and their sum, f32 and bf16 carries: bitwise
+    for bf16 in (False, True):
+        kx = K.census_x(cl, cr, p1, p2, min_d, n_d, bf16)
+        px = P.census_x_family(cl, cr, p1, p2, min_d, n_d, bf16)
+        same(f"sgm_census_x bf16={bf16}", kx, px)
+        ky = K.census_y(cl, cr, torch.zeros_like(kx), rolls, p1, p2, min_d,
+                        bf16)
+        py = P.census_y_family(cl, cr, rolls, p1, p2, min_d, n_d, bf16)
+        same(f"sgm_census_y bf16={bf16}", ky, py)
+        same(f"census_aggregate bf16={bf16}",
+             K.census_aggregate(cl, cr, rolls, p1, p2, min_d, n_d, bf16),
+             px + py)
+    say("sgm", f"census_aggregate (B6 + B5) equals its plain twin bitwise "
+        f"on the f32 ({n_d}, {h}, {w}) volume, f32 and bf16 carries")
+
+    # B4 on the materialized census volume, both families, both carries
+    vol = S._census_volume(cl, cr, min_d, n_d)
+    vx = vol.permute(2, 1, 0).contiguous()     # scan over x
+    vy = vol.permute(1, 2, 0).contiguous()     # scan over y
+    scans = ((vx, (0,), "x"), (vy, rolls, "y"))
+    for bf16 in (False, True):
+        for v, r, entry in scans:
+            same(f"sgm_axis_scan {entry} bf16={bf16}",
+                 K.axis_scan(v, r, p1, p2, bf16, entry, min_d),
+                 P.axis_scan(v, r, p1, p2, bf16, entry, min_d))
+    say("sgm", "sgm_axis_scan (B4) equals its plain twin bitwise on the "
+        "census volume, x and y families, f32 and bf16 carries")
+
+    # B4 on a SAD volume: bitwise against the twin of its own update
+    # grouping cost + (cand - Lmin); against the scan path's grouping
+    # (cost + cand) - Lmin each orientation may move by one bf16 step
+    sad = S._cost_volume(left, right, scfg._replace(cost="sad"))
+    sad_err = 0.0
+    for v, r, entry in ((sad.permute(2, 1, 0).contiguous(), (0,), "x"),
+                        (sad.permute(1, 2, 0).contiguous(), rolls, "y")):
+        k = K.axis_scan(v, r, p1, p2, False, entry, min_d)
+        same(f"sgm_axis_scan sad {entry}", k,
+             P.axis_scan(v, r, p1, p2, False, entry, min_d))
+        ref = S._axis_scan(v, r, p1, p2, False, entry, min_d)
+        rel = float(((k - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        require(rel <= 2.0 ** -7, f"sgm_axis_scan sad {entry}: relative "
+                f"error {rel} against the scan grouping > 2^-7")
+        sad_err = max(sad_err, float((k - ref).abs().max()))
+    say("sgm", f"sgm_axis_scan on a SAD volume: bitwise vs its twin; vs the "
+        f"scan grouping max abs err {sad_err:.4g} (bound: one bf16 step "
+        f"per orientation, relative 2^-7)")
+
+    # the whole disparity map: kernels against the plain path
+    d_k = S.disparity(left, right, scfg)
+    d_p = S.disparity(left, right, scfg._replace(sgm_pallas=False))
+    require(bool(torch.equal(d_k, d_p)), "disparity: kernel and plain maps "
+            "differ")
+    say("sgm", f"disparity() with the kernels equals the plain path; "
+        f"{float((d_k > 0).float().mean()):.4f} of pixels valid")
+
+    # time per launch; the plain twins run fewer reps
+    buf = torch.zeros((n_d, h, w), dtype=torch.float32, device=device)
+    census_bytes = 2 * h * w * 4
+    out["sgm_census_x"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: K.census_x(cl, cr, p1, p2, min_d, n_d)),
+        plain_ms=cuda_time_ms(lambda: P.census_x_family(
+            cl, cr, p1, p2, min_d, n_d), reps=2, warmup=1),
+        # reads two census images, writes the x family; ~10 operations per
+        # (pixel, plane) and orientation (xor, popcount, the d+-1 min, +P1,
+        # two mins, +P2, -Lmin, +cost, the Lmin reduction)
+        **bound(census_bytes + cells * 4, 2 * cells * 10))
+    out["sgm_census_y"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: K.census_y(cl, cr, buf, rolls, p1, p2,
+                                           min_d)),
+        plain_ms=cuda_time_ms(lambda: P.census_y_family(
+            cl, cr, rolls, p1, p2, min_d, n_d), reps=2, warmup=1),
+        # reads two census images and the x family, writes the sum; three
+        # directions per orientation
+        **bound(census_bytes + 2 * cells * 4, 6 * cells * 10))
+    # B4 launches twice per frame on the materialized branch (x and y
+    # family): per-launch time and bound are the mean of the two
+    ms = sum(cuda_time_ms(lambda: K.axis_scan(v, r, p1, p2, False, e,
+                                              min_d), reps=5)
+             for v, r, e in scans) / 2
+    plain_ms = sum(cuda_time_ms(lambda: P.axis_scan(v, r, p1, p2, False, e,
+                                                    min_d), reps=1, warmup=1)
+                   for v, r, e in scans) / 2
+    out["sgm_axis_scan"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        # reads the bf16 volume, writes the f32 sum; (1 + 3) directions x 2
+        # orientations over the two launches
+        **bound(cells * 2 + cells * 4, 4 * cells * 10))
+    for name in ("sgm_census_x", "sgm_census_y", "sgm_axis_scan"):
+        rec = out[name]
+        say("sgm", f"{name}: {1e3 * rec['ms']:.1f} us/launch, plain twin "
+            f"{1e3 * rec['plain_ms']:.1f} us, bound "
+            f"{1e3 * rec['bound_ms']:.1f} us ({rec['bound_by']})")
     return out
 
 
@@ -223,6 +423,202 @@ def check_warp(drv) -> float:
     return err
 
 
+def make_pairs(config, n_frames: int):
+    from densesurfelmapping_tpu_torch.io import synthetic
+    poses = synthetic.forward_trajectory(n_frames + 3, step=0.4)[:n_frames]
+    return [stereo_pair(config, p) + (p,) for p in poses]
+
+
+def drive_stereo(config, pairs, device, scfg, sync_checked: bool):
+    """Feed stereo pairs through DeviceResidentMapping with the on-device
+    matcher (keyframe every 2nd frame); returns (driver, frames/s to a
+    device synchronize)."""
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping)
+    drv = DeviceResidentMapping(config, device=device)
+    drv.enable_stereo(bf=config.camera.fx * BASELINE_M, stereo_config=scfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync_checked:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, (li, ri, _, pose) in enumerate(pairs):
+            drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+            drv.feed_stereo(float(i), li, ri)
+        drv.flush()
+    finally:
+        if sync_checked:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fps = len(pairs) / (time.perf_counter() - t0)
+    drv.close()
+    return drv, fps
+
+
+def depth_check(config, pair, device) -> tuple:
+    """compute_depth_stereo on one pair against its rendered depth (1-25
+    m): (coverage, median relative error)."""
+    from densesurfelmapping_tpu_torch.pipeline.fuse_step import (
+        compute_depth_stereo)
+    li, ri, ld, _ = pair
+    bf = torch.tensor(config.camera.fx * BASELINE_M, device=device)
+    depth, _ = compute_depth_stereo(
+        config, sgm_config(), torch.from_numpy(li).to(device).float(),
+        torch.from_numpy(ri).to(device).float(), bf)
+    depth = depth.cpu().numpy()
+    sel = (ld >= 1.0) & (ld <= 25.0)
+    ok = sel & (depth > 0)
+    rel = np.abs(depth[ok] - ld[ok]) / ld[ok]
+    return float(ok.sum() / sel.sum()), float(np.median(rel))
+
+
+def same_bank(a: dict, b: dict) -> bool:
+    return len(a["color"]) == len(b["color"]) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_stereo(device) -> dict:
+    """The stereo-resident drive: returns the SGM launch counts of the
+    fused drive and of the materialized-branch drive."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as KS
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    scfg = sgm_config()
+    t0 = time.perf_counter()
+    pairs = make_pairs(cfg, N_STEREO_FRAMES)
+    say("stereo", f"rendered {len(pairs)} pairs {cfg.height}x{cfg.width} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    drive_stereo(cfg, pairs[:2], device, scfg, sync_checked=False)
+
+    K.reset_launch_counts()
+    KS.reset_launch_counts()
+    drv, fps = drive_stereo(cfg, pairs, device, scfg, sync_checked=True)
+    slic_n, sgm_n = dict(K.LAUNCHES), dict(KS.LAUNCHES)
+    say("stereo", f"kernel launches in the drive: {sgm_n}, {slic_n}")
+    require(sgm_n["sgm_census_x"] == sgm_n["sgm_census_y"] == len(pairs)
+            and sgm_n["sgm_axis_scan"] == 0,
+            "stereo drive: B5/B6 not launched once per frame")
+    require(all(v > 0 for v in slic_n.values()),
+            "stereo drive: a SLIC kernel was not launched")
+    rows = bank_to_numpy(drv.bank)
+    live = rows["update_times"] > 0
+    require(live.sum() > 0, "stereo drive: the map is empty")
+    for k in ("position", "normal", "size", "weight"):
+        require(bool(np.isfinite(rows[k]).all()), f"NaN/Inf in bank.{k}")
+    require(drv.compactions > 0, "stereo drive: compaction never ran")
+    ground = (rows["update_times"] >= 5) & (np.abs(rows["normal"][:, 1])
+                                            > 0.9)
+    gerr = float(np.abs(rows["position"][ground, 1]
+                        - synthetic.default_scene().ground_y).mean()) \
+        if ground.any() else float("nan")
+    say("stereo", f"{len(pairs)} pairs: {fps:.2f} frames/s (to a device "
+        f"synchronize), {int(live.sum())} live surfels, {int(ground.sum())} "
+        f"stable ground surfels with mean |y - ground| {gerr:.3e} m, "
+        f"{drv.compactions} compactions; steady feed raised no host-device "
+        f"sync")
+
+    cov, err = depth_check(cfg, pairs[0], device)
+    require(err <= DEPTH_REL_ERR_BOUND and cov >= DEPTH_COVERAGE_FLOOR,
+            f"depth check: coverage {cov:.4f} (floor "
+            f"{DEPTH_COVERAGE_FLOOR}), median relative error {err:.4f} "
+            f"(bound {DEPTH_REL_ERR_BOUND})")
+    say("stereo", f"depth check, frame 0: coverage {cov:.4f} (floor "
+        f"{DEPTH_COVERAGE_FLOOR}), median relative error {err:.5f} (bound "
+        f"{DEPTH_REL_ERR_BOUND})")
+
+    # the first 4 frames: fused kernels, plain path, materialized branch
+    KS.reset_launch_counts()
+    fused, _ = drive_stereo(cfg, pairs[:4], device, scfg, False)
+    require(KS.LAUNCHES["sgm_census_x"] == 4, "fused drive: B6 count")
+    plain, _ = drive_stereo(cfg, pairs[:4], device,
+                            scfg._replace(sgm_pallas=False), False)
+    KS.reset_launch_counts()
+    mat, _ = drive_stereo(cfg, pairs[:4], device,
+                          scfg._replace(sgm_fused_census=False), False)
+    mat_n = dict(KS.LAUNCHES)
+    say("stereo", f"materialized-branch drive, 4 pairs: launches {mat_n}")
+    require(mat_n["sgm_axis_scan"] == 8 and mat_n["sgm_census_x"] == 0,
+            "materialized drive: B4 not launched twice per frame")
+    rf = bank_to_numpy(fused.bank)
+    require(same_bank(rf, bank_to_numpy(plain.bank)),
+            "fused-kernel and plain stereo maps differ")
+    require(same_bank(rf, bank_to_numpy(mat.bank)),
+            "fused and materialized stereo maps differ")
+    say("stereo", f"4 pairs: fused census (B6+B5), plain twins and the "
+        f"materialized volume (B4) build the same map "
+        f"({int((rf['update_times'] > 0).sum())} live surfels)")
+    return dict(sgm_n, sgm_axis_scan=mat_n["sgm_axis_scan"])
+
+
+def phase_profile(device) -> None:
+    """Device time per frame of the stereo drive by fuse-step scope (a
+    measurement: it prints what the profiler reports and checks nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping)
+
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    pairs = make_pairs(cfg, 8)
+    drv = DeviceResidentMapping(cfg, device=device)
+    drv.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
+                      stereo_config=sgm_config())
+
+    def feed(i):
+        li, ri, _, pose = pairs[i]
+        drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        drv.feed_stereo(float(i), li, ri)
+
+    for i in range(2):
+        feed(i)
+    torch.cuda.synchronize()
+    n = len(pairs) - 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, len(pairs)):
+            feed(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    drv.close()
+
+    from torch.autograd import DeviceType
+    events = prof.events()
+    # device activity: kernels, copies and sets (not the device-side spans
+    # of the record_function scopes)
+    device = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for e in device:                      # union of the device intervals
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy_us += max(0.0, hi - lo)
+        end = max(end, hi)
+    say("profile", f"{n} stereo frames under the profiler: wall "
+        f"{1e3 * wall / n:.2f} ms/frame, device busy {busy_us / n / 1e3:.2f} "
+        f"ms/frame, idle share {1 - busy_us / 1e6 / wall:.3f}, "
+        f"{len(device) / n:.0f} device operations/frame")
+    for key in ("stereo", "superpixel", "fuse", "initialize"):
+        # host-side scope: its device time is that of the work it launched
+        scope = [e for e in events if e.name == key
+                 and e.device_type == DeviceType.CPU]
+        say("profile", f"scope {key}: device "
+            f"{sum(e.device_time_total for e in scope) / n / 1e3:.3f} "
+            f"ms/frame, host "
+            f"{sum(e.cpu_time_total for e in scope) / n / 1e3:.3f} ms/frame")
+    by_name: dict = {}
+    for e in device:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        say("profile", f"device op {name[:70]}: {t / n / 1e3:.3f} ms/frame, "
+            f"{c / n:.1f}/frame")
+
+
 def main() -> None:
     smi = phase_device()
     device = torch.device("cuda")
@@ -234,6 +630,7 @@ def main() -> None:
     from densesurfelmapping_tpu_torch.ops.cuda import slic as K
 
     records = phase_kernels(kitti_config(), device)
+    records.update(phase_sgm_kernels(device))
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     t0 = time.perf_counter()
@@ -269,16 +666,23 @@ def main() -> None:
     say("rate", f"{N_FRAMES} frames: {fps:.2f} frames/s unpipelined, "
         f"{fps_p:.2f} frames/s pipelined, same map ({smi})")
 
+    launches.update(phase_stereo(device))
+    phase_profile(device)
+
     kernels = []
-    for name, line in (("slic_assign", 241), ("slic_centroid", 330),
-                       ("slic_huber", 397)):
+    for name, src, line in (
+            ("slic_assign", "slic", 241), ("slic_centroid", "slic", 330),
+            ("slic_huber", "slic", 397), ("sgm_axis_scan", "sgm", 181),
+            ("sgm_census_y", "sgm", 382), ("sgm_census_x", "sgm", 497)):
         rec = records[name]
         kernels.append(dict(
             name=name, route="cuda",
-            source="densesurfelmapping_tpu_torch/csrc/slic.cu",
-            replaces=f"densesurfelmapping_tpu/ops/pallas/slic.py:{line}",
+            source=f"densesurfelmapping_tpu_torch/csrc/{src}.cu",
+            replaces=f"densesurfelmapping_tpu/ops/pallas/{src}.py:{line}",
             launches=launches[name], max_abs_err=rec["max_abs_err"],
-            ms=rec["ms"], plain_ms=rec["plain_ms"]))
+            ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

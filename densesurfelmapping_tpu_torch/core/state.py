@@ -173,6 +173,35 @@ def pack_frame(config: SurfelMapConfig, image: np.ndarray,
     return np.concatenate([ci.reshape(-1), cd.reshape(-1).view(np.uint8)])
 
 
+def pack_stereo_pair(config: SurfelMapConfig, left: np.ndarray,
+                     right: np.ndarray) -> np.ndarray:
+    """One-buffer stereo-pair encoding: left u8 bytes then right u8 bytes, a
+    single (2*H*W,) u8 array (the depth is computed on the device by
+    `pipeline.fuse_step.fuse_frame_stereo_packed`).  u8 camera images pass
+    as they are; other dtypes are clipped and converted."""
+    out = []
+    for name, img in (("left", left), ("right", right)):
+        img = np.asarray(img)
+        if img.shape != (config.height, config.width):
+            raise ValueError(f"{name} shape {img.shape} != camera "
+                             f"{(config.height, config.width)}")
+        if img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        out.append(img.reshape(-1))
+    return np.concatenate(out)
+
+
+def pack_stereo_with_aux(config: SurfelMapConfig, pair_buf: np.ndarray,
+                         aux: np.ndarray) -> np.ndarray:
+    """`pack_stereo_pair` bytes followed by `pack_aux` bytes as ONE u8
+    buffer.  Decoded by `pipeline.fuse_step.fuse_frame_stereo_onebuf`."""
+    aux = np.asarray(aux, np.uint8)
+    out = np.empty(pair_buf.shape[0] + aux.shape[0], np.uint8)
+    out[:pair_buf.shape[0]] = pair_buf
+    out[pair_buf.shape[0]:] = aux
+    return out
+
+
 AUX_HEAD_BYTES = 72   # pose f32 (64) + frame index i32 (4) + bf f32 (4)
 
 

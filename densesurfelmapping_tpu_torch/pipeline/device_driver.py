@@ -33,10 +33,11 @@ import numpy as np
 import torch
 
 from ..config import SurfelMapConfig
-from ..core.state import bank_to_numpy, pack_aux, pack_frame_with_aux
+from ..core.state import (bank_to_numpy, pack_aux, pack_frame_with_aux,
+                          pack_stereo_with_aux)
 from ..ops import warp as warp_ops
 from . import fuse_step
-from .driver import SurfelMapping
+from .driver import SurfelMapping, _StereoPair
 
 
 class DeviceResidentMapping(SurfelMapping):
@@ -114,7 +115,18 @@ class DeviceResidentMapping(SurfelMapping):
         return t.to(self.device)
 
     def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
-        aux = pack_aux(pose, ref_index, self._window_np)
+        aux = pack_aux(pose, ref_index, self._window_np,
+                       bf=self._stereo_bf or 0.0)
+        if isinstance(depth, _StereoPair):
+            self._flush_pending()   # fuse order = feed order
+            with self.timer.stage("pack"):
+                buf = pack_stereo_with_aux(self.config, depth.buf, aux)
+            with self.timer.stage("dispatch"):
+                _, stats = fuse_step.fuse_frame_stereo_onebuf(
+                    self.config, self._stereo_cfg, self._stereo_filter,
+                    self.bank, self._upload(buf))
+            self._fused(stats)
+            return
         if self._pipelined:
             # submit THIS frame's pack to the worker, then run the PREVIOUS
             # frame: the pack overlaps the upload and the enqueue
@@ -131,6 +143,9 @@ class DeviceResidentMapping(SurfelMapping):
         with self.timer.stage("dispatch"):
             _, stats = fuse_step.fuse_frame_onebuf(self.config, self.bank,
                                                    self._upload(buf))
+        self._fused(stats)
+
+    def _fused(self, stats) -> None:
         self._stats_dev = stats
         self._host_rows = None
         self.frames_fused += 1

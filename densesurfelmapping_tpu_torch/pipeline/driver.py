@@ -22,12 +22,22 @@ import torch
 from ..config import SurfelMapConfig
 from ..core import geometry
 from ..core.state import (FIELDS, FrameInput, SurfelBank, bank_from_numpy,
-                          bank_to_numpy, compact_frame, pad_frame)
+                          bank_to_numpy, compact_frame, pack_stereo_pair,
+                          pad_frame)
 from ..ops import fusion, migration, warp as warp_ops
 from ..utils.timing import StageTimer
 from . import fuse_step
 from .inactive_pool import InactivePool
 from .pose_graph import PoseGraph
+
+
+class _StereoPair:
+    """Depth-buffer marker: a packed u8 left/right pair whose depth is
+    computed on the device inside the fuse step (enable_stereo)."""
+    __slots__ = ("buf",)
+
+    def __init__(self, buf: np.ndarray):
+        self.buf = buf
 
 
 class SurfelMapping:
@@ -69,6 +79,11 @@ class SurfelMapping:
         self.max_buffered = 5000   # reference queue depth (ros_node.cpp:24)
         self.dropped = collections.Counter()
 
+        # on-device stereo front-end (enable_stereo/feed_stereo)
+        self._stereo_cfg = None
+        self._stereo_bf: Optional[float] = None
+        self._stereo_filter = True
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -86,6 +101,33 @@ class SurfelMapping:
     def feed_image(self, stamp: float, image: np.ndarray) -> None:
         self._check_frame("image", image)
         self.image_buffer.append((float(stamp), image))
+        self._trim_buffers()
+        self._synchronize()
+
+    def enable_stereo(self, bf: float, stereo_config=None,
+                      filter_depth: bool = True) -> None:
+        """Switch the depth source to the on-device stereo front-end:
+        `feed_stereo(stamp, left, right)` replaces feed_image + feed_depth.
+        bf = fx * baseline (the `depth = bf / disparity` contract of
+        kitti_publisher's publisher.py:40)."""
+        from ..models.stereo import StereoConfig
+
+        self._stereo_cfg = stereo_config or StereoConfig()
+        self._stereo_bf = float(bf)
+        self._stereo_filter = bool(filter_depth)
+
+    def feed_stereo(self, stamp: float, left: np.ndarray,
+                    right: np.ndarray) -> None:
+        """Rectified stereo pair at `stamp`; pairs with feed_pose like
+        feed_image + feed_depth (the left image is the fuse intensity).
+        Requires enable_stereo()."""
+        if self._stereo_cfg is None:
+            raise RuntimeError("feed_stereo before enable_stereo(bf=...)")
+        self._check_frame("left", left)
+        self._check_frame("right", right)
+        buf = pack_stereo_pair(self.config, left, right)
+        self.image_buffer.append((float(stamp), np.asarray(left)))
+        self.depth_buffer.append((float(stamp), _StereoPair(buf)))
         self._trim_buffers()
         self._synchronize()
 
@@ -204,7 +246,12 @@ class SurfelMapping:
     def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
         pose_dev = self._to_device(np.asarray(pose, np.float32).reshape(4, 4))
         index = self._to_device(np.array(ref_index, np.int32))
-        if self.config.compact_upload:
+        if isinstance(depth, _StereoPair):
+            _, stats = fuse_step.fuse_frame_stereo_packed(
+                self.config, self._stereo_cfg, self._stereo_filter,
+                self.bank, self._to_device(depth.buf), pose_dev, index,
+                self._to_device(np.array(self._stereo_bf, np.float32)))
+        elif self.config.compact_upload:
             ci, cd = compact_frame(self.config, image, depth)
             _, stats = fuse_step.fuse_frame_compact(
                 self.config, self.bank, self._to_device(ci),

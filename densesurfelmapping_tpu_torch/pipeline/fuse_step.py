@@ -127,3 +127,124 @@ def fuse_frame_onebuf(config: SurfelMapConfig, bank: SurfelBank,
     host-to-device copy per frame."""
     hw3 = 3 * config.height * config.width
     return fuse_frame_windowed_aux(config, bank, buf[:hw3], buf[hw3:])
+
+
+# ----------------------------------------------------------------------
+# stereo-resident entry points: depth computed on the device from a packed
+# u8 left/right pair (the reference's offline PSMNet depth source,
+# `kitti_publisher/scripts/publisher.py:36-41`, replaced by the matcher)
+# ----------------------------------------------------------------------
+def unpack_stereo(config: SurfelMapConfig, buf: torch.Tensor):
+    """Decode of `core.state.pack_stereo_pair`: (2*H*W,) u8 -> (left f32,
+    right f32) at raw camera resolution."""
+    oh, ow = config.height, config.width
+    hw = oh * ow
+    return (buf[:hw].view(oh, ow).float(),
+            buf[hw:2 * hw].view(oh, ow).float())
+
+
+def compute_depth_stereo(config: SurfelMapConfig, stereo_config,
+                         left_f32: torch.Tensor, right_f32: torch.Tensor,
+                         bf: torch.Tensor, filter_depth: bool = True,
+                         prior_depth: torch.Tensor | None = None):
+    """Disparity -> metric depth (`depth = bf / disparity`, publisher.py:40)
+    -> optional flyer/median post-filter; returns (depth, rescued-pixel
+    count).  bf = fx * baseline is a 0-d tensor.  prior_depth (optional
+    (H, W) map render, `ops/render.py`) feeds the matcher's rescue gate,
+    converted to disparity with the same bf."""
+    from ..models import stereo as stereo_model
+    from ..ops import depthfilter
+
+    with torch.profiler.record_function("stereo"):
+        prior_disp = None
+        if prior_depth is not None:
+            prior_disp = torch.where(prior_depth > 0,
+                                     bf / prior_depth.clamp_min(1e-6), 0.0)
+        disp, n_rescued = stereo_model.disparity(
+            left_f32, right_f32, stereo_config, prior_disp=prior_disp,
+            with_rescued=True)
+        depth = torch.where(disp > 0, bf / disp.clamp_min(1e-6), 0.0)
+        depth = torch.where(depth <= config.fuse_far, depth, 0.0)
+        if filter_depth:
+            depth = depthfilter.clean_depth(depth)
+            # optional disparity-domain median fills on the cleaned map
+            for _ in range(stereo_config.fill_after_clean
+                           if stereo_config.post_median else 0):
+                d2 = torch.where(depth > 0, bf / depth.clamp_min(1e-6), 0.0)
+                d2 = stereo_model._median_postfilter(
+                    d2, stereo_config.speckle_tol,
+                    stereo_config.fill_support)
+                depth = torch.where(d2 > 0, bf / d2.clamp_min(1e-6), 0.0)
+    return depth, n_rescued
+
+
+def _stereo_prior(config: SurfelMapConfig, stereo_config, bank: SurfelBank,
+                  pose: torch.Tensor, axis_name: str | None = None):
+    """Map-rendered depth prior for the matcher's rescue gate, or None (off
+    unless stereo_config.prior_rescue, and in hierarchical mode, whose
+    matcher ignores it).  Rendered from the bank before this frame's
+    update."""
+    if not stereo_config.prior_rescue or stereo_config.hierarchical:
+        return None
+    from ..ops.render import render_prior_depth
+    return render_prior_depth(config, bank, pose,
+                              stride=stereo_config.prior_stride,
+                              min_updates=stereo_config.prior_min_updates,
+                              axis_name=axis_name)
+
+
+def fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
+                                      stereo_config, filter_depth: bool,
+                                      bank: SurfelBank, buf: torch.Tensor,
+                                      pose: torch.Tensor,
+                                      frame_index: torch.Tensor,
+                                      bf: torch.Tensor,
+                                      pose_mask: torch.Tensor | None
+                                      ) -> Tuple[SurfelBank, dict]:
+    """Stereo-resident fuse step: packed u8 pair -> depth on the device ->
+    the fuse step, with the optional window gating of
+    `fuse_frame_windowed`."""
+    ph, pw = config.padded_height, config.padded_width
+    pad = (0, pw - config.width, 0, ph - config.height)
+    left, right = unpack_stereo(config, buf)
+    depth, n_rescued = compute_depth_stereo(
+        config, stereo_config, left, right, bf, filter_depth,
+        prior_depth=_stereo_prior(config, stereo_config, bank, pose))
+    bank, stats = fuse_frame(config, bank, FrameInput(
+        image=F.pad(left, pad), depth=F.pad(depth, pad), pose=pose,
+        frame_index=frame_index), pose_mask=pose_mask)
+    stats["n_rescued_px"] = n_rescued
+    return bank, stats
+
+
+def fuse_frame_stereo_packed(config: SurfelMapConfig, stereo_config,
+                             filter_depth: bool, bank: SurfelBank,
+                             buf: torch.Tensor, pose: torch.Tensor,
+                             frame_index: torch.Tensor, bf: torch.Tensor
+                             ) -> Tuple[SurfelBank, dict]:
+    """Stereo-resident fuse step without window gating."""
+    return fuse_frame_stereo_windowed_packed(
+        config, stereo_config, filter_depth, bank, buf, pose, frame_index,
+        bf, None)
+
+
+def fuse_frame_stereo_windowed_aux(config: SurfelMapConfig, stereo_config,
+                                   filter_depth: bool, bank: SurfelBank,
+                                   buf: torch.Tensor, aux: torch.Tensor
+                                   ) -> Tuple[SurfelBank, dict]:
+    """Stereo-resident windowed fuse with pose, index, bf and window mask
+    in one aux buffer."""
+    pose, ref, bf, mask = unpack_aux(aux)
+    return fuse_frame_stereo_windowed_packed(
+        config, stereo_config, filter_depth, bank, buf, pose, ref, bf, mask)
+
+
+def fuse_frame_stereo_onebuf(config: SurfelMapConfig, stereo_config,
+                             filter_depth: bool, bank: SurfelBank,
+                             buf: torch.Tensor) -> Tuple[SurfelBank, dict]:
+    """Stereo-resident windowed fuse with the whole payload (packed pair +
+    aux, `core.state.pack_stereo_with_aux`) in one upload."""
+    hw2 = 2 * config.height * config.width
+    return fuse_frame_stereo_windowed_aux(config, stereo_config,
+                                          filter_depth, bank, buf[:hw2],
+                                          buf[hw2:])

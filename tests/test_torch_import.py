@@ -40,6 +40,27 @@ def test_port_imports_without_jax():
     assert not res["reference"]
 
 
+_STEREO_MODULES = ("models.stereo", "ops.sgm", "ops.cuda.sgm", "ops.render",
+                   "ops.depthfilter")
+
+
+def test_stereo_modules_import_without_jax():
+    """The stereo slice's modules import on their own without jax; the
+    wrapper module builds no kernel at import."""
+    code = ("import importlib, json, sys\n"
+            f"names = {list(_STEREO_MODULES)!r}\n"
+            "for n in names:\n"
+            "    importlib.import_module('densesurfelmapping_tpu_torch.' + n)\n"
+            "from densesurfelmapping_tpu_torch.ops.cuda import build\n"
+            "print(json.dumps({'jax': 'jax' in sys.modules,\n"
+            "                  'loaded': sorted(build._loaded)}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not res["jax"]
+    assert res["loaded"] == []
+
+
 def test_tf32_off_at_import():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
