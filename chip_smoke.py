@@ -9,8 +9,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
   3. kernels - each SLIC kernel against its plain PyTorch twin on a KITTI-size
                frame of the synthetic scene, with the time per launch of both
   4. sgm     - each SGM kernel against its plain twin on a KITTI-size stereo
-               pair (bitwise, f32 and bf16 carries), the whole disparity map
-               with and without the kernels, and the time per launch of both
+               pair, 8 and 4 paths, on a 61 x 97 crop with 37 disparities
+               from 3, and on a 24 x 1800 strip (bitwise, f32 and bf16
+               carries), the whole disparity
+               map with and without the kernels, B5's occupancy (its launch
+               is cooperative), and the time per launch of kernel and twin
   5. drive   - depth-fed DeviceResidentMapping over 60 KITTI-size frames,
                steady state under torch.cuda.set_sync_debug_mode("error"):
                launch counts, no NaN, the ground-plane gate, compaction, the
@@ -19,9 +22,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
   7. stereo  - stereo-resident DeviceResidentMapping (the CLI's synthetic
                --stereo --sgm flow) over 30 KITTI-size pairs under the sync
                check: B5/B6 once per frame, no NaN, compaction, the depth
-               check against the rendered depth; the fused-census, plain and
-               materialized-volume (B4) matchers build the same map
-  8. profile - device ms/frame of the stereo drive by fuse-step scope
+               check against the rendered depth, the peak device memory; the
+               fused-census, plain and materialized-volume (B4) matchers build
+               the same map
+  8. profile - device ms/frame of the stereo drive by fuse-step scope and
+               of the SGM kernels
 The last lines are the {"kernels": [...]} JSON, the nvidia-smi line, and the
 JSON object {"ok": true, "device": {...}}.
 """
@@ -257,20 +262,58 @@ def phase_sgm_kernels(device) -> dict:
                 f"{name}: kernel differs from its plain twin (max abs err "
                 f"{float((a - b).abs().max())})")
 
-    # B6, B5 and their sum, f32 and bf16 carries: bitwise
-    for bf16 in (False, True):
-        kx = K.census_x(cl, cr, p1, p2, min_d, n_d, bf16)
-        px = P.census_x_family(cl, cr, p1, p2, min_d, n_d, bf16)
-        same(f"sgm_census_x bf16={bf16}", kx, px)
-        ky = K.census_y(cl, cr, torch.zeros_like(kx), rolls, p1, p2, min_d,
-                        bf16)
-        py = P.census_y_family(cl, cr, rolls, p1, p2, min_d, n_d, bf16)
-        same(f"sgm_census_y bf16={bf16}", ky, py)
-        same(f"census_aggregate bf16={bf16}",
-             K.census_aggregate(cl, cr, rolls, p1, p2, min_d, n_d, bf16),
-             px + py)
-    say("sgm", f"census_aggregate (B6 + B5) equals its plain twin bitwise "
-        f"on the f32 ({n_d}, {h}, {w}) volume, f32 and bf16 carries")
+    def census_checks(tag, cl, cr, min_d, n_d, v_rolls):
+        """B6, B5 and their sum against the twins, f32 and bf16 carries:
+        bitwise."""
+        for bf16 in (True, False):
+            kx = K.census_x(cl, cr, p1, p2, min_d, n_d, bf16)
+            px = P.census_x_family(cl, cr, p1, p2, min_d, n_d, bf16)
+            same(f"sgm_census_x {tag} bf16={bf16}", kx, px)
+            ky = K.census_y(cl, cr, torch.zeros_like(kx), v_rolls, p1, p2,
+                            min_d, bf16)
+            py = P.census_y_family(cl, cr, v_rolls, p1, p2, min_d, n_d, bf16)
+            same(f"sgm_census_y {tag} bf16={bf16}", ky, py)
+            same(f"census_aggregate {tag} bf16={bf16}",
+                 K.census_aggregate(cl, cr, v_rolls, p1, p2, min_d, n_d,
+                                    bf16), px + py)
+        say("sgm", f"census_aggregate (B6 + B5) equals its plain twin bitwise "
+            f"on {tag}: f32 ({n_d}, {cl.shape[0]}, {cl.shape[1]}), min_d "
+            f"{min_d}, {2 + 2 * len(v_rolls)} paths, f32 and bf16 carries")
+
+    # B6, B5 and their sum on the KITTI pair (8 and 4 paths) and on a crop
+    # whose sides are not multiples of 16 or 32 (bands of 7 columns, lanes
+    # and bands with padding), with another disparity range
+    census_checks("the KITTI pair", cl, cr, min_d, n_d, rolls)
+    census_checks("the KITTI pair", cl, cr, min_d, n_d, (0,))
+    crop = (slice(150, 211), slice(300, 397))          # 61 x 97
+    ccl, ccr = cl[crop].contiguous(), cr[crop].contiguous()
+    for v_rolls in (rolls, (0,)):
+        census_checks("a 61 x 97 crop", ccl, ccr, 3, 37, v_rolls)
+    # wider than KITTI: B5's bands hold 28 columns, two per warp (its
+    # general column loop; one column per warp everywhere above)
+    wcl, wcr = (torch.cat([c[150:174], c[150:174, :559]], 1).contiguous()
+                for c in (cl, cr))
+    require(K.census_y_plan(*wcl.shape, 37, 3, K._sms(device)).cpw > 1,
+            "the wide strip does not give B5 two columns per warp")
+    for v_rolls in (rolls, (0,)):
+        census_checks("a 24 x 1800 strip", wcl, wcr, 3, 37, v_rolls)
+    # B5 runs the matcher's roll sets only; a one-way diagonal set raises
+    try:
+        K.census_y(ccl, ccr, torch.zeros((37, *ccl.shape), device=device),
+                   (0, 1), p1, p2, 3)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sgm_census_y took the roll set (0, 1)")
+    for g in (3, 1):
+        blocks, per_sm, sms = K.census_y_occupancy(h, w, n_d, g)
+        plan = K.census_y_plan(h, w, n_d, g, sms)
+        say("sgm", f"sgm_census_y {2 + 2 * g} paths: {blocks} blocks of "
+            f"{plan.threads} threads, {plan.ncols} columns and {plan.smem} B "
+            f"shared memory each; {per_sm} fit an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor) x {sms} SMs")
+        require(blocks <= per_sm * sms, "sgm_census_y: the cooperative "
+                "launch cannot hold every band at once")
 
     # B4 on the materialized census volume, both families, both carries
     vol = S._census_volume(cl, cr, min_d, n_d)
@@ -496,8 +539,12 @@ def phase_stereo(device) -> dict:
 
     K.reset_launch_counts()
     KS.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     drv, fps = drive_stereo(cfg, pairs, device, scfg, sync_checked=True)
+    peak = torch.cuda.max_memory_allocated()
     slic_n, sgm_n = dict(K.LAUNCHES), dict(KS.LAUNCHES)
+    say("stereo", f"peak device memory of the drive: {peak / 2**20:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated)")
     say("stereo", f"kernel launches in the drive: {sgm_n}, {slic_n}")
     require(sgm_n["sgm_census_x"] == sgm_n["sgm_census_y"] == len(pairs)
             and sgm_n["sgm_axis_scan"] == 0,
@@ -616,6 +663,12 @@ def phase_profile(device) -> None:
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         say("profile", f"device op {name[:70]}: {t / n / 1e3:.3f} ms/frame, "
+            f"{c / n:.1f}/frame")
+    # the SGM kernels (outside the scopes: they launch through ctypes)
+    for part in ("census_x_kernel", "census_y_kernel"):
+        t = sum(v[0] for k, v in by_name.items() if part in k)
+        c = sum(v[1] for k, v in by_name.items() if part in k)
+        say("profile", f"sgm {part}: {t / n / 1e3:.3f} ms/frame, "
             f"{c / n:.1f}/frame")
 
 

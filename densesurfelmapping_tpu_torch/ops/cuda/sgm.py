@@ -8,13 +8,21 @@ falls back.  `LAUNCHES` counts the calls of each kernel entry:
 
 * sgm_axis_scan (B4): the line scan of a materialized volume and its
   combine pass;
-* sgm_census_x (B6): the horizontal family of the census aggregate;
-* sgm_census_y (B5): the vertical + diagonal family (line scan + combine).
+* sgm_census_x (B6): the horizontal family of the census aggregate (one
+  warp per row and orientation, meeting at mid-row);
+* sgm_census_y (B5): the vertical + diagonal family (one block per SM,
+  bands of columns exchanging edge carries, a cooperative launch; the two
+  orientations meet at mid-image).
+
+The launch geometry of B5 and B6 comes from `census_x_plan` and
+`census_y_plan`, plain Python that the CPU tests check.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +35,15 @@ LAUNCHES = {"sgm_axis_scan": 0, "sgm_census_y": 0, "sgm_census_x": 0}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sgm_axis_scan": [_P] * 3 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P],
-    "sgm_census_x": [_P] * 3 + [_I] * 3 + [_F, _F] + [_I] * 2 + [_P],
-    "sgm_census_y": [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 2 + [_P],
+    "sgm_census_x": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
+    "sgm_census_y": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P],
+    "sgm_census_y_occupancy": [_I] * 6 + [_P],
 }
+MAX_SMEM = 232448         # shared memory one block may opt into (H100)
+H100_SMS = 132            # streaming multiprocessors of an H100 SXM
+_CENSUS_ROWS = 8          # B5: census rows per cp.async chunk
+_HALO_ROWS = 4            # B5: rows of a halo ring
+_MAX_Y_WARPS = 20         # B5 blocks: __launch_bounds__(640)
 _ENTRY = {None: 0, "x": 1, "y": 2}
 
 
@@ -53,6 +67,20 @@ def _rolls(rolls) -> list:
     if not 1 <= len(rolls) <= 3 or any(r not in (-1, 0, 1) for r in rolls):
         raise ValueError(f"rolls must be 1-3 shifts in (-1, 0, 1): {rolls}")
     return rolls + [0] * (3 - len(rolls))
+
+
+# the roll sets B5 runs: the vertical path alone (4 paths) and the vertical
+# path with both diagonals (8 paths), in the matcher's order
+CENSUS_Y_ROLLS = ((0,), (0, 1, -1))
+
+
+def census_y_rolls(v_rolls) -> list:
+    """B5's three rolls (zero-padded) of `v_rolls`; raises for a roll set
+    other than those of CENSUS_Y_ROLLS."""
+    if tuple(int(r) for r in v_rolls) not in CENSUS_Y_ROLLS:
+        raise ValueError(f"census_y runs the roll sets {CENSUS_Y_ROLLS}, "
+                         f"got {tuple(v_rolls)}")
+    return _rolls(v_rolls)
 
 
 def axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
@@ -103,6 +131,102 @@ def _census_args(census_l, census_r, min_d, n_d):
             torch.cuda.current_stream(dev).cuda_stream)
 
 
+class CensusXPlan(NamedTuple):
+    """B6 geometry: one block of two warps (forward, backward) per row; they
+    meet at column `mid`: the forward warp's totals of x < mid and the
+    backward warp's of x >= mid go through the slab to the other warp."""
+    blocks: int
+    threads: int
+    smem: int                  # bytes of dynamic shared memory per block
+    mid: int
+    slab_shape: tuple          # bf16 (H, W, 128): first-half totals
+    slab_bytes: int
+
+
+class CensusYPlan(NamedTuple):
+    """B5 geometry: per orientation `nbands` blocks, block c holding the
+    columns bands(W)[c]; warp w of a block the `cpw` columns from w * cpw.
+    A block's shared memory holds its band's row state twice (rows of odd
+    and even parity), g x (ncols + 2) x 128 f32 each, two chunks of staged
+    census rows, and, four times, a row of the other orientation's totals
+    (ncols x 128 bf16) and of out (128 x (ncols | 1) f32).  The scans meet
+    at row `mid`: the forward scan's totals of rows < mid and the backward
+    scan's of rows >= mid go through the slab to the other scan."""
+    nbands: int
+    ncols: int                 # columns of a band (the last may be shorter)
+    cpw: int                   # columns of a warp
+    threads: int
+    smem: int                  # bytes of dynamic shared memory per block
+    mid: int
+    slab_shape: tuple          # bf16 (H, W, 128): first-half totals
+    slab_bytes: int
+    halo_bytes: int            # tagged edge carries (u64) + rows done (u32)
+
+    def bands(self, W: int):
+        return [range(c * self.ncols, min(W, (c + 1) * self.ncols))
+                for c in range(self.nbands)]
+
+
+def census_x_plan(H: int, W: int, n_d: int) -> CensusXPlan:
+    # a f32 out tile of 32 x 128 and a ring of 16 x 32 uint2 per warp, the
+    # row's census
+    smem = 2 * 4 * 32 * 128 + 2 * 8 * 16 * 32 + 4 * (4 * math.ceil(W / 4) + W)
+    if smem > MAX_SMEM:
+        raise ValueError(f"census_x: a row of width {W} needs {smem} B of "
+                         f"shared memory > {MAX_SMEM}")
+    return CensusXPlan(blocks=H, threads=64, smem=smem, mid=W // 2,
+                       slab_shape=(H, W, 128), slab_bytes=2 * H * W * 128)
+
+
+def census_y_plan(H: int, W: int, n_d: int, g: int,
+                  sms: int = H100_SMS) -> CensusYPlan:
+    """One block per SM: `sms // 2` bands per orientation (at most one per
+    column), columns split evenly, one warp per column up to 20 warps.
+    g is 1 or 3 (CENSUS_Y_ROLLS).  Raises if a band's row state does not
+    fit one block's shared memory."""
+    if g not in (1, 3) or not 1 <= n_d <= 128 or H < 1 or W < 1:
+        raise ValueError(f"census_y: bad shape H={H} W={W} n_d={n_d} g={g}")
+    ncols = math.ceil(W / max(1, min(sms // 2, W)))
+    nbands = math.ceil(W / ncols)
+    cpw = math.ceil(ncols / _MAX_Y_WARPS)
+    q = math.ceil((ncols + n_d - 1) / 4)
+    smem = (4 * (2 * g * (ncols + 2) * 128
+                 + 2 * _CENSUS_ROWS * (4 * q + ncols))
+            + 4 * ncols * 256 + 4 * 4 * 128 * (ncols | 1))
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"census_y: a band of {ncols} columns x {g} directions needs "
+            f"{smem} B of shared memory > {MAX_SMEM} (width {W} on {sms} "
+            f"SMs)")
+    return CensusYPlan(nbands=nbands, ncols=ncols, cpw=cpw,
+                       threads=32 * math.ceil(ncols / cpw), smem=smem,
+                       mid=H // 2, slab_shape=(H, W, 128),
+                       slab_bytes=2 * H * W * 128,
+                       halo_bytes=8 * 2 * nbands * 2 * g * _HALO_ROWS * 128
+                       + 4 * 2 * nbands)
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def census_y_occupancy(H: int, W: int, n_d: int, g: int,
+                       carry_bf16: bool = False) -> tuple:
+    """(blocks, blocks one SM holds at once, SMs) of B5's plan on the
+    current card (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`); the
+    cooperative launch needs blocks <= that x SMs."""
+    sms = _sms(torch.device("cuda"))
+    plan = census_y_plan(H, W, n_d, g, sms)
+    n = ctypes.c_int(0)
+    err = _lib().sgm_census_y_occupancy(n_d, g, int(bool(carry_bf16)),
+                                        plan.cpw, plan.threads, plan.smem,
+                                        ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+                           f"failed with CUDA error {err}")
+    return 2 * plan.nbands, n.value, sms
+
+
 def census_x(census_l: torch.Tensor, census_r: torch.Tensor, p1: float,
              p2: float, min_d: int, n_d: int,
              carry_bf16: bool = False) -> torch.Tensor:
@@ -112,11 +236,13 @@ def census_x(census_l: torch.Tensor, census_r: torch.Tensor, p1: float,
         return plain.census_x_family(census_l, census_r, p1, p2, min_d, n_d,
                                      carry_bf16)
     H, W, cl, cr, stream = _census_args(census_l, census_r, min_d, n_d)
-    out = torch.empty((n_d, H, W), dtype=torch.float32,
-                      device=census_l.device)
-    err = _lib().sgm_census_x(cl, cr, out.data_ptr(), H, W, n_d, float(p1),
-                              float(p2), int(min_d), int(bool(carry_bf16)),
-                              stream)
+    plan = census_x_plan(H, W, n_d)
+    dev = census_l.device
+    out = torch.empty((n_d, H, W), dtype=torch.float32, device=dev)
+    slab = torch.empty(plan.slab_shape, dtype=torch.bfloat16, device=dev)
+    err = _lib().sgm_census_x(cl, cr, out.data_ptr(), slab.data_ptr(), H, W,
+                              n_d, float(p1), float(p2), int(min_d),
+                              int(bool(carry_bf16)), plan.smem, stream)
     _launched("sgm_census_x", err)
     return out
 
@@ -133,14 +259,18 @@ def census_y(census_l: torch.Tensor, census_r: torch.Tensor,
                                               p1, p2, min_d, n_d,
                                               carry_bf16))
     H, W, cl, cr, stream = _census_args(census_l, census_r, min_d, n_d)
-    optr = _check("out", out, torch.float32, (n_d, H, W), census_l.device)
+    dev = census_l.device
+    optr = _check("out", out, torch.float32, (n_d, H, W), dev)
     g = len(v_rolls)
-    r0, r1, r2 = _rolls(v_rolls)
-    scratch = torch.empty((2 * g, H * W * n_d), dtype=torch.float32,
-                          device=census_l.device)
-    err = _lib().sgm_census_y(cl, cr, scratch.data_ptr(), optr, H, W, n_d, g,
-                              r0, r1, r2, float(p1), float(p2), int(min_d),
-                              int(bool(carry_bf16)), stream)
+    r0, r1, r2 = census_y_rolls(v_rolls)
+    plan = census_y_plan(H, W, n_d, g, _sms(dev))
+    slab = torch.empty(plan.slab_shape, dtype=torch.bfloat16, device=dev)
+    halo = torch.empty(plan.halo_bytes, dtype=torch.uint8, device=dev)
+    err = _lib().sgm_census_y(cl, cr, optr, slab.data_ptr(), halo.data_ptr(),
+                              H, W, n_d, g, r0, r1, r2,
+                              float(p1), float(p2), int(min_d),
+                              int(bool(carry_bf16)), plan.nbands, plan.ncols,
+                              plan.cpw, plan.threads, plan.smem, stream)
     _launched("sgm_census_y", err)
     return out
 
