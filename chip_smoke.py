@@ -6,8 +6,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
   1. device  - a CUDA card is required; its name and power limit are printed
   2. build   - the SLIC and SGM kernels (densesurfelmapping_tpu_torch/csrc/
                slic.cu, sgm.cu) are built with nvcc, in parallel, and loaded
-  3. kernels - each SLIC kernel against its plain PyTorch twin on a KITTI-size
-               frame of the synthetic scene, with the time per launch of both
+  3. kernels - each SLIC kernel against its plain PyTorch twin on the inputs
+               of every run_slic sweep over a KITTI-size frame of the
+               synthetic scene and over a 120 x 56 frame at sp 6 and 16,
+               then its time per launch at KITTI
   4. sgm     - each SGM kernel against its plain twin on a KITTI-size stereo
                pair, 8 and 4 paths, on a 61 x 97 crop with 37 disparities
                from 3, and on a 24 x 1800 strip (bitwise, f32 and bf16
@@ -26,9 +28,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
                fused-census, plain and materialized-volume (B4) matchers build
                the same map
   8. profile - device ms/frame of the stereo drive by fuse-step scope and
-               of the SGM kernels
-The last lines are the {"kernels": [...]} JSON, the nvidia-smi line, and the
-JSON object {"ok": true, "device": {...}}.
+               of the SGM and SLIC kernels
+A kernel's time is its device time from the profiler's records of that
+kernel (`kernel_time`), printed beside the wrapper's host time per call; a
+plain twin's is CUDA events around its calls.  The last lines are the
+{"kernels": [...]} JSON, the nvidia-smi line, and the JSON object
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ def require(cond: bool, what: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events around `reps` calls."""
+    """Mean time of fn() in ms, by CUDA events around `reps` calls (the
+    plain twins: many small ops, where the host may set the pace)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -79,6 +85,66 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_time(fn, names, reps: int = 20, warmup: int = 3) -> dict:
+    """Device time of the kernels that one call of fn() launches, from the
+    profiler's kernel records whose name contains one of `names` (a call's
+    time is the sum of its records, one per name), over `reps` calls after
+    `warmup`.  The profiler may drop a record at the edge of its window (one
+    of 20 or of 100 on the H100), so up to two calls may go uncounted.
+
+    Returns per_us (each counted call's device us), us / us_min / us_max,
+    all_us (device us per call of every operation fn() ran: fills, copies
+    and memsets beside the kernel) and host_us (host us per call, measured
+    apart: the wrapper's checks, allocations and launch, no synchronize).
+    Events around the wrapper would time the host's enqueue rate whenever
+    the kernel is shorter than the wrapper's host work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    recs = [sorted((e for e in dev if n in e.name),
+                   key=lambda e: e.time_range.start) for n in names]
+    calls = min(len(r) for r in recs)
+    require(reps - 2 <= calls and max(len(r) for r in recs) <= reps,
+            f"profiler: {[len(r) for r in recs]} records of {names} for "
+            f"{reps} calls")
+    per = [sum(r[i].time_range.elapsed_us() for r in recs)
+           for i in range(calls)]
+    other = sum(e.time_range.elapsed_us() for e in dev
+                if not any(n in e.name for n in names))
+    us = sum(per) / calls
+    return dict(per_us=per, us=us, us_min=min(per), us_max=max(per),
+                host_us=host_us, all_us=us + other / reps)
+
+
+def timed(rec: dict, t: dict, plain_ms: float) -> dict:
+    """`rec` with the kernel's device time as `ms` and its timing record."""
+    return dict(rec, ms=t["us"] / 1e3, plain_ms=plain_ms, time=t)
+
+
+def time_line(name: str, rec: dict) -> str:
+    t = rec["time"]
+    return (f"{name}: device {t['us']:.2f} us/launch (min {t['us_min']:.2f}, "
+            f"max {t['us_max']:.2f}; profiler kernel records, "
+            f"{len(t['per_us'])} launches), all device ops of a call "
+            f"{t['all_us']:.2f} us, wrapper host {t['host_us']:.1f} us/call; "
+            f"plain twin {1e3 * rec['plain_ms']:.1f} us (CUDA events); bound "
+            f"{1e3 * rec['bound_ms']:.2f} us ({rec['bound_by']})")
 
 
 def phase_device() -> str:
@@ -134,81 +200,143 @@ def scene_frame(config, pose, device):
                         torch.from_numpy(cd).to(device))
 
 
-def phase_kernels(config, device) -> dict:
-    """Each kernel against its plain twin on the same inputs; returns the
-    per-kernel record (max error, kernel and plain ms)."""
-    from densesurfelmapping_tpu_torch.ops import superpixel as S
-    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+def slic_config(sp: int):
+    """The 120 x 56 frame of tests/test_pallas_slic.py at seed pitch sp."""
+    from densesurfelmapping_tpu_torch.config import (
+        DRIVE_PROFILE, CameraIntrinsics, SurfelMapConfig)
+    cam = CameraIntrinsics(width=120, height=56, fx=80.0, fy=80.0, cx=59.5,
+                           cy=27.5)
+    return SurfelMapConfig(camera=cam, profile=DRIVE_PROFILE,
+                           surfel_capacity=4096, sp_size=sp)
 
+
+def slic_inputs(config, device):
+    """The synthetic scene's frame at the identity pose, its inverse depth,
+    the initial seeds and the initial assignment (run_slic's start)."""
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
     image, depth = scene_frame(config, np.eye(4), device)
     inv_depth = torch.where(depth > 0.01, 1.0 / depth.clamp_min(1e-20), 0.0)
     seeds = S.initialize_seeds(config, image, depth)
     g = S.device_geometry(config, image.device)
-    asg0 = torch.where(g["pixel_valid"], 0, -1).to(torch.int32)
-    out = {}
+    asg = torch.where(g["pixel_valid"], 0, -1).to(torch.int32)
+    return image, depth, inv_depth, seeds, asg
 
-    hw, n_seeds = image.numel(), seeds.x.numel()
-    # B1: one sweep from the initial state: assignment and claims exact
-    args = (config, image, inv_depth, asg0, seeds.x, seeds.y,
-            seeds.mean_intensity, seeds.mean_depth, seeds.stable)
-    ka, kc = K.slic_assign(*args)
-    pa, pc = S.assign_sweep(*args)
-    n_asg = int((ka != pa).sum())
-    n_claim = int((kc != pc).sum())
-    require(n_asg == 0 and n_claim == 0,
-            f"slic_assign: {n_asg} assignments, {n_claim} claims differ")
-    out["slic_assign"] = dict(
-        max_abs_err=float((ka - pa).abs().max()),
-        ms=cuda_time_ms(lambda: K.slic_assign(*args)),
-        plain_ms=cuda_time_ms(lambda: S.assign_sweep(*args)),
-        # reads image, inverse depth, assignment, five seed planes and the
-        # stable flags; writes the assignment and the claims; ~20 f32
-        # operations per candidate, 9 candidates per pixel
-        **bound(4 * hw * 4 + n_seeds * (5 * 4 + 1 + 4), hw * 9 * 20))
-    say("kernels", f"slic_assign: assignment and claims exact "
-        f"({ka.numel()} px, {kc.numel()} seeds)")
 
-    # B2: sums over the sweep's assignment
-    sargs = (config, image, depth, ka)
-    ks, ps = K.slic_centroid(*sargs), S.seed_sums(*sargs)
-    err = max(float((a - b).abs().max()) for a, b in zip(ks, ps))
-    for a, b in zip(ks, ps):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
-    out["slic_centroid"] = dict(
-        max_abs_err=err, ms=cuda_time_ms(lambda: K.slic_centroid(*sargs)),
-        plain_ms=cuda_time_ms(lambda: S.seed_sums(*sargs)),
-        # reads image, depth, assignment; writes six seed planes; six adds
-        # per pixel
-        **bound(3 * hw * 4 + 6 * n_seeds * 4, 6 * hw))
-    say("kernels", f"slic_centroid: six sums within rtol 1e-5 / atol 1e-3 "
-        f"(max abs err {err:.3g})")
-
-    # B3: the five Huber steps from the sums' mean
-    n, nd, sum_d = ps[0], ps[4], ps[5]
-    hargs = (config, depth, ka, sum_d / nd.clamp_min(1.0), nd <= 0)
-    km, pm = K.slic_huber(*hargs), S.huber_mean_depth(*hargs)
-    err = float((km - pm).abs().max())
-    require(err <= 1e-4, f"slic_huber: mean depth off by {err} m")
-    require(bool(torch.isfinite(km).all()), "slic_huber: non-finite mean")
-    out["slic_huber"] = dict(
-        max_abs_err=err, ms=cuda_time_ms(lambda: K.slic_huber(*hargs)),
-        plain_ms=cuda_time_ms(lambda: S.huber_mean_depth(*hargs)),
-        # reads depth, assignment, the mean and the latch; writes the mean;
-        # five steps of ~8 operations per pixel
-        **bound(2 * hw * 4 + n_seeds * (4 + 1 + 4), 5 * 8 * hw))
-    say("kernels", f"slic_huber: mean depth within 1e-4 m "
-        f"(max abs err {err:.3g} m, {int((n > 0).sum())} seeds with pixels)")
-
-    # whole SLIC: kernels against the plain path
+def slic_diffs(config, device) -> dict:
+    """Each SLIC kernel against its plain twin on the inputs of every sweep
+    of the plain run_slic over `slic_inputs`: B1's assignments and claims
+    that differ (summed over the sweeps) and its largest seed-id difference,
+    B2's largest error and whether it holds rtol 1e-5 / atol 1e-3, B3's
+    largest error and whether its means are finite; then the share of
+    pixels where the whole run_slic with the kernels differs from the plain
+    one."""
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+    image, depth, inv_depth, seeds, asg = slic_inputs(config, device)
+    d = dict(assign_px=0, claims=0, assign_err=0, sums_err=0.0,
+             sums_close=True, huber_err=0.0, huber_finite=True)
+    for _ in range(config.sp_iters):
+        args = (config, image, inv_depth, asg, seeds.x, seeds.y,
+                seeds.mean_intensity, seeds.mean_depth, seeds.stable)
+        (ka, kc), (pa, pc) = K.slic_assign(*args), S.assign_sweep(*args)
+        d["assign_px"] += int((ka != pa).sum())
+        d["claims"] += int((kc != pc).sum())
+        d["assign_err"] = max(d["assign_err"], int((ka - pa).abs().max()))
+        sargs = (config, image, depth, pa)
+        ks, ps = K.slic_centroid(*sargs), S.seed_sums(*sargs)
+        for a, b in zip(ks, ps):
+            d["sums_err"] = max(d["sums_err"], float((a - b).abs().max()))
+            d["sums_close"] &= bool(torch.allclose(a, b, rtol=1e-5,
+                                                   atol=1e-3))
+        hargs = (config, depth, pa, ps[5] / ps[4].clamp_min(1.0), ps[4] <= 0)
+        km = K.slic_huber(*hargs)
+        d["huber_err"] = max(d["huber_err"], float(
+            (km - S.huber_mean_depth(*hargs)).abs().max()))
+        d["huber_finite"] &= bool(torch.isfinite(km).all())
+        # on along the plain path
+        asg = pa
+        seeds = S.update_seeds(config, seeds.replace(
+            stable=seeds.stable & ~pc), asg, image, depth)
     _, a_k = S.run_slic(config, image, depth, use_kernels=True)
     _, a_p = S.run_slic(config, image, depth, use_kernels=False)
-    frac = float((a_k != a_p).float().mean())
-    require(frac < 0.01, f"run_slic: {frac:.4%} of pixels differ")
-    say("kernels", f"run_slic kernels vs plain: {frac:.4%} of pixels differ "
-        f"(bound 1%)")
+    d["run_slic_frac"] = float((a_k != a_p).float().mean())
+    return d
+
+
+def check_slic(config, device) -> dict:
+    """slic_diffs within the bounds: B1 exact, B2 rtol 1e-5 / atol 1e-3, B3
+    1e-4 m, run_slic under 1% of pixels."""
+    d = slic_diffs(config, device)
+    tag = (f"{config.height} x {config.width}, sp {config.sp_size}, "
+           f"{config.sp_iters} sweeps")
+    require(d["assign_px"] == 0 and d["claims"] == 0,
+            f"slic_assign ({tag}): {d['assign_px']} assignments, "
+            f"{d['claims']} claims differ")
+    require(d["sums_close"], f"slic_centroid ({tag}): sums off by "
+            f"{d['sums_err']}")
+    require(d["huber_err"] <= 1e-4 and d["huber_finite"],
+            f"slic_huber ({tag}): mean depth off by {d['huber_err']} m")
+    require(d["run_slic_frac"] < 0.01, f"run_slic ({tag}): "
+            f"{d['run_slic_frac']:.4%} of pixels differ")
+    say("kernels", f"{tag}: slic_assign assignment and claims exact, "
+        f"slic_centroid within rtol 1e-5 / atol 1e-3 (max abs err "
+        f"{d['sums_err']:.3g}), slic_huber within 1e-4 m (max abs err "
+        f"{d['huber_err']:.3g} m); run_slic kernels vs plain "
+        f"{d['run_slic_frac']:.4%} of pixels differ (bound 1%)")
+    return d
+
+
+def phase_kernels(config, device) -> dict:
+    """Each SLIC kernel against its plain twin over run_slic's sweeps, then
+    its device time on the first sweep's inputs; returns the per-kernel
+    record (max error, device and plain ms, bound)."""
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+
+    d = check_slic(config, device)
+    # sp 6: (sp/2)^2 = 9 has no exact reciprocal; sp 16: the wrappers' top
+    for sp in (6, 16):
+        check_slic(slic_config(sp), device)
+    image, depth, inv_depth, seeds, asg0 = slic_inputs(config, device)
+    g = S.device_geometry(config, device)
+    hw, n_seeds = image.numel(), seeds.x.numel()
+    out = {}
+    # B1: one sweep from the initial state
+    args = (config, image, inv_depth, asg0, seeds.x, seeds.y,
+            seeds.mean_intensity, seeds.mean_depth, seeds.stable)
+    # the candidates the gate admits (at most 2 x 2 of the 3 x 3)
+    n_cand = sum(int(m.sum()) for m in g["in_range"].values())
+    out["slic_assign"] = timed(dict(
+        max_abs_err=float(d["assign_err"]),
+        # reads image, inverse depth, assignment, four seed planes and the
+        # stable flags; writes the assignment and the int claims; ~20 f32
+        # operations per admitted candidate
+        **bound(4 * hw * 4 + n_seeds * (4 * 4 + 1 + 4), n_cand * 20)),
+        kernel_time(lambda: K.slic_assign(*args), ("slic_assign_kernel",)),
+        cuda_time_ms(lambda: S.assign_sweep(*args)))
+    # B2: sums over the sweep's assignment
+    asg1, _ = S.assign_sweep(*args)
+    sargs = (config, image, depth, asg1)
+    out["slic_centroid"] = timed(dict(
+        max_abs_err=d["sums_err"],
+        # reads image, depth, assignment; writes six seed planes; six adds
+        # per pixel
+        **bound(3 * hw * 4 + 6 * n_seeds * 4, 6 * hw)),
+        kernel_time(lambda: K.slic_centroid(*sargs),
+                    ("slic_centroid_kernel",)),
+        cuda_time_ms(lambda: S.seed_sums(*sargs)))
+    # B3: the five Huber steps from the sums' mean
+    _, _, _, _, nd, sum_d = S.seed_sums(*sargs)
+    hargs = (config, depth, asg1, sum_d / nd.clamp_min(1.0), nd <= 0)
+    out["slic_huber"] = timed(dict(
+        max_abs_err=d["huber_err"],
+        # reads depth, assignment, the mean and the latch; writes the mean;
+        # five steps of ~8 operations per pixel
+        **bound(2 * hw * 4 + n_seeds * (4 + 1 + 4), 5 * 8 * hw)),
+        kernel_time(lambda: K.slic_huber(*hargs), ("slic_huber_kernel",)),
+        cuda_time_ms(lambda: S.huber_mean_depth(*hargs)))
     for name, rec in out.items():
-        say("kernels", f"{name}: {1e3 * rec['ms']:.1f} us/launch, plain "
-            f"twin {1e3 * rec['plain_ms']:.1f} us")
+        say("kernels", time_line(name, rec))
     return out
 
 
@@ -358,42 +486,44 @@ def phase_sgm_kernels(device) -> dict:
     # time per launch; the plain twins run fewer reps
     buf = torch.zeros((n_d, h, w), dtype=torch.float32, device=device)
     census_bytes = 2 * h * w * 4
-    out["sgm_census_x"] = dict(
+    out["sgm_census_x"] = timed(dict(
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: K.census_x(cl, cr, p1, p2, min_d, n_d)),
-        plain_ms=cuda_time_ms(lambda: P.census_x_family(
-            cl, cr, p1, p2, min_d, n_d), reps=2, warmup=1),
         # reads two census images, writes the x family; ~10 operations per
         # (pixel, plane) and orientation (xor, popcount, the d+-1 min, +P1,
         # two mins, +P2, -Lmin, +cost, the Lmin reduction)
-        **bound(census_bytes + cells * 4, 2 * cells * 10))
-    out["sgm_census_y"] = dict(
+        **bound(census_bytes + cells * 4, 2 * cells * 10)),
+        kernel_time(lambda: K.census_x(cl, cr, p1, p2, min_d, n_d),
+                    ("census_x_kernel",)),
+        cuda_time_ms(lambda: P.census_x_family(cl, cr, p1, p2, min_d, n_d),
+                     reps=2, warmup=1))
+    out["sgm_census_y"] = timed(dict(
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: K.census_y(cl, cr, buf, rolls, p1, p2,
-                                           min_d)),
-        plain_ms=cuda_time_ms(lambda: P.census_y_family(
-            cl, cr, rolls, p1, p2, min_d, n_d), reps=2, warmup=1),
         # reads two census images and the x family, writes the sum; three
         # directions per orientation
-        **bound(census_bytes + 2 * cells * 4, 6 * cells * 10))
+        **bound(census_bytes + 2 * cells * 4, 6 * cells * 10)),
+        kernel_time(lambda: K.census_y(cl, cr, buf, rolls, p1, p2, min_d),
+                    ("census_y_kernel",)),
+        cuda_time_ms(lambda: P.census_y_family(cl, cr, rolls, p1, p2, min_d,
+                                               n_d), reps=2, warmup=1))
     # B4 launches twice per frame on the materialized branch (x and y
-    # family): per-launch time and bound are the mean of the two
-    ms = sum(cuda_time_ms(lambda: K.axis_scan(v, r, p1, p2, False, e,
-                                              min_d), reps=5)
-             for v, r, e in scans) / 2
+    # family): per-launch times and bound are the mean of the two; a launch
+    # is its line scan and its combine pass
+    fam = [kernel_time(lambda: K.axis_scan(v, r, p1, p2, False, e, min_d),
+                       ("scan_lines_kernel", "combine_axis_kernel"))
+           for v, r, e in scans]
+    t_b4 = {k: (fam[0][k] + fam[1][k]) / 2 for k in fam[0] if k != "per_us"}
+    t_b4["per_us"] = [(a + b) / 2 for a, b in zip(fam[0]["per_us"],
+                                                  fam[1]["per_us"])]
     plain_ms = sum(cuda_time_ms(lambda: P.axis_scan(v, r, p1, p2, False, e,
                                                     min_d), reps=1, warmup=1)
                    for v, r, e in scans) / 2
-    out["sgm_axis_scan"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+    out["sgm_axis_scan"] = timed(dict(
+        max_abs_err=0.0,
         # reads the bf16 volume, writes the f32 sum; (1 + 3) directions x 2
         # orientations over the two launches
-        **bound(cells * 2 + cells * 4, 4 * cells * 10))
+        **bound(cells * 2 + cells * 4, 4 * cells * 10)), t_b4, plain_ms)
     for name in ("sgm_census_x", "sgm_census_y", "sgm_axis_scan"):
-        rec = out[name]
-        say("sgm", f"{name}: {1e3 * rec['ms']:.1f} us/launch, plain twin "
-            f"{1e3 * rec['plain_ms']:.1f} us, bound "
-            f"{1e3 * rec['bound_ms']:.1f} us ({rec['bound_by']})")
+        say("sgm", time_line(name, out[name]))
     return out
 
 
@@ -549,8 +679,9 @@ def phase_stereo(device) -> dict:
     require(sgm_n["sgm_census_x"] == sgm_n["sgm_census_y"] == len(pairs)
             and sgm_n["sgm_axis_scan"] == 0,
             "stereo drive: B5/B6 not launched once per frame")
-    require(all(v > 0 for v in slic_n.values()),
-            "stereo drive: a SLIC kernel was not launched")
+    require(all(v == cfg.sp_iters * len(pairs) for v in slic_n.values()),
+            f"stereo drive: the SLIC kernels were not launched "
+            f"{cfg.sp_iters}x per frame")
     rows = bank_to_numpy(drv.bank)
     live = rows["update_times"] > 0
     require(live.sum() > 0, "stereo drive: the map is empty")
@@ -664,11 +795,13 @@ def phase_profile(device) -> None:
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         say("profile", f"device op {name[:70]}: {t / n / 1e3:.3f} ms/frame, "
             f"{c / n:.1f}/frame")
-    # the SGM kernels (outside the scopes: they launch through ctypes)
-    for part in ("census_x_kernel", "census_y_kernel"):
+    # the SGM and SLIC kernels (outside the scopes: they launch through
+    # ctypes)
+    for part in ("census_x_kernel", "census_y_kernel", "slic_assign_kernel",
+                 "slic_centroid_kernel", "slic_huber_kernel"):
         t = sum(v[0] for k, v in by_name.items() if part in k)
         c = sum(v[1] for k, v in by_name.items() if part in k)
-        say("profile", f"sgm {part}: {t / n / 1e3:.3f} ms/frame, "
+        say("profile", f"kernel {part}: {t / n / 1e3:.4f} ms/frame, "
             f"{c / n:.1f}/frame")
 
 
@@ -696,8 +829,10 @@ def main() -> None:
     drv, fps = drive(cfg, frames, device, pipelined=False, sync_checked=True)
     launches = dict(K.LAUNCHES)
     say("drive", f"kernel launches in the drive: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            "a SLIC kernel was not launched on the main path")
+    require(all(v == cfg.sp_iters * drv.frames_fused == cfg.sp_iters
+                * N_FRAMES for v in launches.values()),
+            f"the SLIC kernels were not launched {cfg.sp_iters}x per frame "
+            f"on the main path")
     rows_a = bank_to_numpy(drv.bank)
     stats = check_map(rows_a, drv, synthetic.default_scene().ground_y)
     say("drive", f"map: {stats['live']} live surfels, {stats['ground']} "

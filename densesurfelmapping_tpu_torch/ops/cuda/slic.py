@@ -5,11 +5,17 @@ Each wrapper has the signature of its plain twin in `ops/superpixel.py`.  On
 a CPU tensor it runs that twin; on a CUDA tensor it checks the inputs,
 launches the kernel on the current stream and raises if the launch failed;
 it never falls back.  `LAUNCHES` counts the kernel launches per kernel.
+
+The launch geometry of B2 and B3 comes from `centroid_plan` and
+`huber_plan`, plain Python that the CPU tests check
+(tests/test_torch_slic_plan.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -22,9 +28,63 @@ LAUNCHES = {"slic_assign": 0, "slic_centroid": 0, "slic_huber": 0}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "slic_assign": [_P] * 10 + [_I] * 6 + [_P],
-    "slic_centroid": [_P] * 4 + [_I] * 6 + [_P],
-    "slic_huber": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "slic_centroid": [_P] * 4 + [_I] * 10 + [_P],
+    "slic_huber": [_P] * 5 + [_I] * 10 + [_F, _P],
 }
+MAX_SMEM = 232448         # shared memory one block may opt into (H100)
+STRIP_SEEDS = 8           # B2/B3: seeds (warps) of a block, csrc kStripSeeds
+
+
+class StripPlan(NamedTuple):
+    """B2/B3 geometry: block (bx, r) runs seeds (r, bx * seeds + w), one
+    warp w each.  Their 2sp x 2sp windows' union spans 2sp rows from
+    r * sp - sp/2 and (seeds + 1) sp columns from x0 = bx * seeds * sp -
+    sp/2.  Shared memory stages `planes` 4-byte planes of it as `tile` =
+    2sp rows of `chunks` 16-byte chunks from the 4-aligned column x0 - off,
+    then `list_floats` floats per warp (B3's member list).  Lane l of warp w
+    takes window pixels l + 32 j (row-major in the window, at tile column
+    off + w * sp + window column) for j < per_lane."""
+    seeds: int
+    grid: tuple                # (blocks along the seed row, seed rows)
+    threads: int
+    off: int                   # x0 % 4, the same for every block
+    chunks: int
+    tile: tuple                # (2sp, 4 * chunks) floats
+    planes: int
+    list_floats: int
+    smem: int                  # bytes of dynamic shared memory per block
+    per_lane: int
+
+
+def _check_sp(sp: int) -> None:
+    if not 2 <= sp <= 16:
+        raise ValueError(f"sp_size {sp} outside the kernels' range 2..16")
+
+
+def _strip_plan(rows: int, cols: int, sp: int, planes: int,
+                listed: bool) -> StripPlan:
+    _check_sp(sp)
+    per_lane = math.ceil(4 * sp * sp / 32)
+    off = -(sp // 2) % 4          # bx * seeds * sp is a multiple of 4
+    chunks = math.ceil((off + (STRIP_SEEDS + 1) * sp) / 4)
+    tile = (2 * sp, 4 * chunks)
+    list_floats = 32 * per_lane if listed else 0
+    return StripPlan(
+        seeds=STRIP_SEEDS, grid=(math.ceil(cols / STRIP_SEEDS), rows),
+        threads=32 * STRIP_SEEDS, off=off, chunks=chunks, tile=tile,
+        planes=planes, list_floats=list_floats,
+        smem=4 * (planes * tile[0] * tile[1] + STRIP_SEEDS * list_floats),
+        per_lane=per_lane)
+
+
+def centroid_plan(rows: int, cols: int, sp: int) -> StripPlan:
+    """B2: image, depth and assignment staged; no member list."""
+    return _strip_plan(rows, cols, sp, planes=3, listed=False)
+
+
+def huber_plan(rows: int, cols: int, sp: int) -> StripPlan:
+    """B3: depth and assignment staged, and a member list per warp."""
+    return _strip_plan(rows, cols, sp, planes=2, listed=True)
 
 
 def reset_launch_counts() -> None:
@@ -49,12 +109,18 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> int:
     return t.data_ptr()
 
 
+def _check_chunks(w: int, ptrs) -> None:
+    """B2/B3 stage 16-byte chunks: the rows must start 16-byte aligned."""
+    if w % 4 or any(p % 16 for p in ptrs):
+        raise ValueError(f"the strip kernels need a width that is a "
+                         f"multiple of 4 (got {w}) and 16-byte aligned "
+                         f"planes")
+
+
 def _prepare(config: SurfelMapConfig, device: torch.device):
     if device.type != "cuda":
         raise ValueError(f"the SLIC kernels run on CUDA tensors, got {device}")
-    if not 2 <= config.sp_size <= 16:
-        raise ValueError(f"sp_size {config.sp_size} outside the kernels' "
-                         "range 2..16 (one thread per window pixel)")
+    _check_sp(config.sp_size)
     return _lib(), torch.cuda.current_stream(device).cuda_stream
 
 
@@ -106,10 +172,12 @@ def slic_centroid(config: SurfelMapConfig, image, depth, assignment):
     ptrs = [_check("image", image, torch.float32, hw, dev),
             _check("depth", depth, torch.float32, hw, dev),
             _check("assignment", assignment, torch.int32, hw, dev)]
+    _check_chunks(hw[1], ptrs)
+    plan = centroid_plan(rows, cols, config.sp_size)
     out = torch.empty((6, rows, cols), dtype=torch.float32, device=dev)
-    err = lib.slic_centroid(*ptrs, out.data_ptr(), hw[1], rows, cols,
+    err = lib.slic_centroid(*ptrs, out.data_ptr(), *hw, rows, cols,
                             config.height, config.width, config.sp_size,
-                            stream)
+                            plan.chunks, plan.per_lane, plan.smem, stream)
     _launched("slic_centroid", err)
     return tuple(out.unbind(0))
 
@@ -129,9 +197,12 @@ def slic_huber(config: SurfelMapConfig, depth, assignment, mean, converged):
             _check("assignment", assignment, torch.int32, hw, dev),
             _check("mean", mean, torch.float32, rc, dev),
             _check("converged", converged, torch.bool, rc, dev)]
+    _check_chunks(hw[1], ptrs[:2])
+    plan = huber_plan(*rc, config.sp_size)
     out = torch.empty(rc, dtype=torch.float32, device=dev)
-    err = lib.slic_huber(*ptrs, out.data_ptr(), hw[1], rc[0], rc[1],
-                         config.height, config.width, config.sp_size,
+    err = lib.slic_huber(*ptrs, out.data_ptr(), *hw, *rc, config.height,
+                         config.width, config.sp_size, plan.chunks,
+                         plan.per_lane, plan.smem,
                          float(config.profile.huber_range), stream)
     _launched("slic_huber", err)
     return out
