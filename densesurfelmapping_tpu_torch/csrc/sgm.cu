@@ -2,10 +2,10 @@
 // (sm_90a): the three SGM kernels of the stereo fuse step.  Plain C entry
 // points, loaded with ctypes by densesurfelmapping_tpu_torch/ops/cuda/sgm.py;
 // every entry launches on the caller's stream and returns a CUDA error code.
-// The launch geometry of B5 and B6 (bands, columns per warp, threads, shared
-// bytes, slab) comes from the wrapper's plan (ops/cuda/sgm.py:
-// census_x_plan, census_y_plan), which also states where the scans meet;
-// the entries check it and refuse another.
+// The launch geometry (bands, columns per warp, threads, shared bytes, slab)
+// comes from the wrapper's plan (ops/cuda/sgm.py: axis_plan, census_x_plan,
+// census_y_plan), which also states where the scans meet; the entries check
+// it and refuse another.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -31,15 +31,12 @@
 // the transposed d-reversed x layout are Mosaic devices and have no
 // counterpart here.
 //
-// Design.  B4 (materialized volume) runs every scanline as its own block,
-// one thread per plane, with one block barrier per step, and keeps one f32
-// scratch slab per direction for the roll-order sum.  B5 and B6 (census cost
-// computed in the kernel) use a warp step instead: lane l of a warp holds
-// planes 4l..4l+3 of one path in registers (D <= 128; planes >= D are pads),
-// L[d-1] / L[d+1] across lanes come from one __shfl_up / __shfl_down, and
-// Lmin is one redux.sync minimum on the float bits (every L is >= +0, so
-// unsigned order is float order); no block barrier and no shared memory sit
-// inside a step.  B6 runs a row's two orientations as two warps of one
+// Design.  Every kernel but B4's wide route runs a warp step: lane l of a
+// warp holds planes 4l..4l+3 of one path in registers (D <= 128; planes >= D
+// are pads), L[d-1] / L[d+1] across lanes come from one __shfl_up /
+// __shfl_down, and Lmin is one redux.sync minimum on the float bits (every
+// L is >= +0, so unsigned order is float order); no block barrier and no
+// shared memory sit inside a step.  B6 runs a row's two orientations as two warps of one
 // block.  B5 runs each orientation's scan down the image as bands of columns,
 // one block per SM, each holding its band's row state of all g directions in
 // shared memory (the TPU kernel's resident row carries); the diagonal
@@ -47,7 +44,13 @@
 // in device memory.  In both, the forward and backward scans meet in the
 // middle: each passes its first half's bf16 totals to the other through a
 // (H, W, 128) slab, and the second halves write out f32(forward) +
-// f32(backward), so no pass over out follows the scans.
+// f32(backward), so no pass over out follows the scans.  B4 (a materialized
+// volume) runs the same step and meeting with the cost read from the volume:
+// a line per warp pair for the roll set (0), B5's bands for (0, +1, -1).
+// Only for 128 < D <= 1024 (more planes than a warp holds) does B4 keep its
+// first design: every scanline its own block, one thread per plane, one
+// block barrier per step, one f32 scratch slab per direction and a combine
+// pass for the roll-order sum.
 //
 // Designs tried and not kept: a 16-CTA thread-block cluster per orientation
 // for B5, with the halos in distributed shared memory, runs the scan on 32
@@ -80,11 +83,12 @@ __device__ __forceinline__ float warp_min(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// B4: one DP step of a line.  Every thread of the block calls it (padding
-// threads d >= D publish +inf); returns L' for the thread's plane.  `sl`
-// (blockDim floats) and `smin` (32 floats) are this step's halves of the
-// double buffers: the next write to them is two steps later, after the next
-// step's barrier, so one barrier per step suffices.
+// B4 for 128 < D <= 1024 (the wide route; D <= 128 runs axis_line_kernel or
+// axis_band_kernel below): one DP step of a line.  Every thread of the
+// block calls it (padding threads d >= D publish +inf); returns L' for the
+// thread's plane.  `sl` (blockDim floats) and `smin` (32 floats) are this
+// step's halves of the double buffers: the next write to them is two steps
+// later, after the next step's barrier, so one barrier per step suffices.
 // ---------------------------------------------------------------------------
 template <bool BF16>
 __device__ __forceinline__ float dp_step(float carry, float cost, int D,
@@ -980,25 +984,33 @@ __global__ void __launch_bounds__(kYThreads, 1)
   if (H - 1 >= first) writeback(H - 1);
 }
 
-template <bool BF16, int G, bool ONE>
-int census_y_run(const CensusY& a, int threads, int smem, cudaStream_t s) {
-  auto kernel = census_y_kernel<BF16, G, ONE>;
+
+// Launch a kernel whose blocks wait on each other: every block must be
+// resident at once, which a cooperative launch guarantees (or refuses).
+template <typename Kernel, typename Arg>
+int launch_cooperative(Kernel kernel, const Arg& a, int blocks, int threads,
+                       int smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the bands wait on each other: every block must be resident at once,
-  // which a cooperative launch guarantees (or refuses)
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeCooperative;
   attr.val.cooperative = 1;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(2 * a.nbands);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// the bands of B5 wait on each other
+template <bool BF16, int G, bool ONE>
+int census_y_run(const CensusY& a, int threads, int smem, cudaStream_t s) {
+  return launch_cooperative(census_y_kernel<BF16, G, ONE>, a, 2 * a.nbands,
+                            threads, smem, s);
 }
 
 template <bool BF16, int G, bool ONE>
@@ -1064,29 +1076,488 @@ bool census_y_rolls_ok(int g, int roll0, int roll1, int roll2) {
          (g == 3 && roll0 == 0 && roll1 == 1 && roll2 == -1);
 }
 
-// The plan's geometry, checked: bands cover [0, W), every band has a column,
-// the warps cover the band.
-bool census_y_geometry_ok(int W, int D, int g, int nbands, int ncols,
-                          int cpw, int threads, int smem) {
+// A plan's bands, checked: they cover [0, W), every band has a column, the
+// warps cover the band.
+bool bands_ok(int W, int nbands, int ncols, int cpw, int threads) {
   if (nbands < 1 || ncols < 1 || cpw < 1) return false;
   if (static_cast<long>(nbands) * ncols < W || (nbands - 1) * ncols >= W)
     return false;
   if (threads % 32 != 0 || threads < 32 || threads > kYThreads) return false;
-  if ((threads / 32) * cpw < ncols) return false;
-  return smem <= kMaxSmem &&
+  return (threads / 32) * cpw >= ncols;
+}
+
+bool census_y_geometry_ok(int W, int D, int g, int nbands, int ncols,
+                          int cpw, int threads, int smem) {
+  return bands_ok(W, nbands, ncols, cpw, threads) && smem <= kMaxSmem &&
          static_cast<size_t>(smem) == census_y_smem(D, g, ncols);
+}
+
+// ---------------------------------------------------------------------------
+// B4 for D <= 128 (replaces _axis_call, densesurfelmapping_tpu/ops/pallas/
+// sgm.py:181): the axis scan of a materialized (L, R, D) bf16 volume, out
+// (L, R, D) f32 = f32(bf16(forward total)) + f32(bf16(backward total)), on
+// the warp step of B5 and B6 (`warp_dp`: four planes a lane, shuffles and a
+// redux, no block barrier inside a step), the directions of an orientation
+// summed in registers in roll order in carry dtype and rounded once, and
+// the orientations meeting at step L / 2 through a bf16 (L, R, 128) slab, so
+// there is no f32 scratch and no combine pass.  The matcher's two roll sets
+// have a kernel each:
+//   * (0) (the x family, and the y family of 4 paths): its lines are
+//     independent, so a block of two warps runs line r forward and backward
+//     at once, as B6 runs an image row (axis_line_kernel);
+//   * (0, +1, -1) (the y family of 8 paths): the diagonals couple the rows,
+//     so each orientation runs as B5's bands, one block per SM with its
+//     band's row state in shared memory and the diagonal carries crossing
+//     band edges through B5's tagged ring, a cooperative launch
+//     (axis_band_kernel).
+// The cost comes from the volume, not a census: a step's row (t, r) is D
+// contiguous bf16 values, staged by 16-byte cp.async from the chunk that
+// holds its start (the row is only 2-byte aligned when D is odd), the tail
+// cut at the row's end, and read back with the lane's four planes; pad
+// planes (d >= D) cost +inf, as in B5/B6.  Entry restarts carry over
+// exactly: entry 'x' restarts every direction of the forward orientation at
+// t == d + min_d (B6's free entry), entry 'y' the roll +1 direction of both
+// orientations at r == d + min_d (B5's); the diagonals restart at the
+// volume's border rows through B5's zero state columns.  The first step of
+// a path runs the update on a zero carry, as the plain twin does (which
+// gives L = C, clamped at 9984 with bf16 carries).
+// Bound on the H100: bytes.  At KITTI size (x family L 1241, R 376; y
+// family L 376, R 1241; D 127) each launch reads the 118.5 MB bf16 volume
+// and writes the 237 MB f32 out: 106 us at 3.35 TB/s; the slab adds 119 MB
+// written and read.
+// ---------------------------------------------------------------------------
+constexpr int kLAhead = 6;     // steps a line's rows are fetched ahead
+constexpr int kLRing = 8;      // staged rows of a line (>= kLAhead + 2)
+constexpr int kLRowBytes = 272;  // one staged row: 16 ceil((14 + 256) / 16)
+constexpr int kVRing = 4;      // staged band rows (fetched two ahead)
+
+// cp.async to a shared-window address (__cvta_generic_to_shared): a loop
+// that converts once keeps the conversion out of every step
+__device__ __forceinline__ void cp_async16_n(unsigned dst, const void* gmem,
+                                             int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_to(unsigned dst, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage `bytes` bytes from `src` (2-byte aligned) to `dst` (16-byte
+// aligned) by 16-byte cp.async from the 16-byte chunk holding src, thread i
+// of n taking chunks i, i + n, ...  The last chunk is cut at src + bytes
+// (src-size), so nothing past the run is read; the first chunk starts at or
+// before src inside the volume (its base is 16-byte aligned: the wrapper
+// checks).  The run starts at bf16 element `run_offset(src)` of dst.
+__device__ __forceinline__ void stage_run(void* dst, const void* src,
+                                          int bytes, int i, int n) {
+  const uintptr_t b = reinterpret_cast<uintptr_t>(src);
+  const char* a = reinterpret_cast<const char*>(b & ~uintptr_t{15});
+  const int end = static_cast<int>(b & 15) + bytes;
+  const unsigned d = shared_address(dst);
+  for (int c = i; 16 * c < end; c += n)
+    cp_async16_n(d + 16 * c, a + 16 * c, min(16, end - 16 * c));
+}
+
+__device__ __forceinline__ int run_offset(const void* src) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15) >> 1;
+}
+
+// The lane's planes d = 4 lane + j of a staged bf16 row; +inf on pads.
+__device__ __forceinline__ Planes volume_cost(const unsigned short* row,
+                                              int D, int lane) {
+  Planes c;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int d = 4 * lane + j;
+    c.v[j] = d < D ? __uint_as_float(static_cast<unsigned>(row[d]) << 16)
+                   : CUDART_INF_F;
+  }
+  return c;
+}
+
+// f32(bf16(own)) + f32(other) of the lane's planes d = 4 lane + j < D to
+// out's row, straight from registers (a store staged for coalescing cost a
+// third more time in the line kernel on the H100).
+__device__ __forceinline__ void store_sum(float* out_row, const Planes& own,
+                                          uint2 other, int D, int lane) {
+  const float4 w = bf16x4_to_float4(other);
+  const float e[4] = {round_bf16(own.v[0]) + w.x, round_bf16(own.v[1]) + w.y,
+                      round_bf16(own.v[2]) + w.z, round_bf16(own.v[3]) + w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (4 * lane + j < D) out_row[4 * lane + j] = e[j];
+}
+
+__device__ __forceinline__ Planes zero_carry(int D, int lane) {
+  Planes z;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) z.v[j] = 4 * lane + j < D ? 0.0f : CUDART_INF_F;
+  return z;
+}
+
+// One block of two warps per line r: warp 0 runs it forward, warp 1
+// backward.  Step s's row is fetched kLAhead steps ahead into a ring (one
+// cp.async group per step; lanes 0-16 copy its chunks); in the second half
+// the other warp's bf16 totals come in the same group (the first kLAhead of
+// them in groups of their own once the first halves are done).  A step
+// costs what the warp issues more than its DP chain (about 500 cycles a
+// step at KITTI size on the H100, where the chain is under 100), so the
+// row, slab and out addresses advance by a stride (no 64-bit index
+// products a step), shared addresses are converted once, and each lane
+// stores its four planes of out straight from registers (store_sum).
+// Measured there
+// (experiments/torch_sgm_time.py): a staged, coalesced out store cost a
+// third more time, steps run in fenced chunks of four 38% more, and
+// fetching 12 or 24 steps ahead instead of 6 up to 5% more.
+template <bool BF16>
+__global__ void __launch_bounds__(64)
+    axis_line_kernel(const __nv_bfloat16* __restrict__ v,
+                     float* __restrict__ out, __nv_bfloat16* __restrict__ slab,
+                     int L, int R, int D, float p1, float p2, int entry_x,
+                     int min_d) {
+  __shared__ __align__(16) unsigned char s_rows[2][kLRing][kLRowBytes];
+  __shared__ uint2 s_other[2][kLRing][32];
+  const int o = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool fwd = o == 0;
+  const int first = fwd ? L >> 1 : L - (L >> 1);  // steps before the meeting
+  // step 0's row, and the element strides from a step's row to the next
+  const size_t row0 = static_cast<size_t>(fwd ? 0 : L - 1) * R + blockIdx.x;
+  const long long vstride = (fwd ? 1LL : -1LL) * R * D;
+  const long long sstride = (fwd ? 1LL : -1LL) * R * 128;
+  const float p1v = BF16 ? round_bf16(p1) : p1;
+  const float p2v = BF16 ? round_bf16(p2) : p2;
+  const Edges edges = lane_edges(lane);
+  const unsigned char* rows = s_rows[o][0];
+  const uint2* others = s_other[o][0] + lane;
+  const unsigned rows_s = shared_address(rows) + 16 * lane;
+  const unsigned others_s = shared_address(others);
+  // the next row and other total to fetch, and their steps
+  const __nv_bfloat16* vf = v + row0 * D;
+  const __nv_bfloat16* of = slab + row0 * 128 + 4 * lane;
+  int sf = 0, so = 0;
+  auto fetch_row = [&]() {
+    if (sf < L) {
+      const uintptr_t b = reinterpret_cast<uintptr_t>(vf);
+      const int end = static_cast<int>(b & 15) + 2 * D;
+      if (16 * lane < end)
+        cp_async16_n(rows_s + (sf & (kLRing - 1)) * kLRowBytes,
+                     reinterpret_cast<const char*>(b & ~uintptr_t{15}) +
+                         16 * lane,
+                     min(16, end - 16 * lane));
+    }
+    vf += vstride;
+    ++sf;
+  };
+  auto fetch_other = [&]() {
+    if (so < L) cp_async8_to(others_s + (so & (kLRing - 1)) * 32 * 8, of);
+    of += sstride;
+    ++so;
+  };
+  // step s's row, slab and out addresses
+  const __nv_bfloat16* vs = v + row0 * D;
+  __nv_bfloat16* ss = slab + row0 * 128 + 4 * lane;
+  float* os = out + row0 * D;
+  Planes Lc = zero_carry(D, lane);
+  // wait for step s's group (kLAhead younger ones may be in flight), then
+  // the step; every lane commits every group
+  auto step = [&](int s) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kLAhead) : "memory");
+    __syncwarp();
+    const Planes c = volume_cost(
+        reinterpret_cast<const unsigned short*>(
+            rows + (s & (kLRing - 1)) * kLRowBytes) + run_offset(vs),
+        D, lane);
+    Lc = warp_dp<BF16>(Lc, c, p1v, p2v, edges);
+    if (entry_x && fwd && entry_column(s, min_d))
+      entry_restart(Lc, c, s, min_d, lane);
+    vs += vstride;
+  };
+  for (int s = 0; s < kLAhead; ++s) {
+    fetch_row();
+    cp_async_commit();
+  }
+  for (int s = 0; s < first; ++s) {
+    fetch_row();
+    cp_async_commit();
+    step(s);
+    store_bf16x4(ss, Lc);
+    ss += sstride;
+    os += vstride;
+  }
+  // the other warp's first half is in the slab
+  __syncthreads();
+  of += first * sstride;   // step first's row of the slab
+  so = first;
+  for (int s = first; s < first + kLAhead; ++s) {
+    fetch_other();
+    cp_async_commit();
+  }
+  for (int s = first; s < L; ++s) {
+    fetch_row();
+    fetch_other();
+    cp_async_commit();
+    step(s);
+    store_sum(os, Lc, others[(s & (kLRing - 1)) * 32], D, lane);
+    os += vstride;
+  }
+}
+
+struct AxisBand {
+  const __nv_bfloat16* v;
+  float* out;
+  __nv_bfloat16* slab;
+  // B5's layout for g = 3: [2 o][nbands][2 side][3][kHaloRows][128] tagged
+  // carries, then [2 o][nbands] rows done (u32); zeroed before the launch
+  unsigned long long* halo;
+  int L, R, D, min_d, ncols, cpw, nbands, entry;
+  float p1, p2;
+};
+
+// Bytes of a staged band row: ncols D bf16 from the chunk holding its start.
+__host__ __device__ inline int band_row_bytes(int ncols, int D) {
+  return 16 * ((2 * ncols * D + 29) / 16);
+}
+
+// Shared bytes of a B4 band block: the double-buffered row state, kVRing
+// staged volume rows and four rows of the other orientation's totals (the
+// plan's axis_plan computes the same).
+size_t axis_band_smem(int D, int ncols) {
+  return 4 * (static_cast<size_t>(2) * 3 * (ncols + 2) * 128) +
+         static_cast<size_t>(kVRing) * band_row_bytes(ncols, D) +
+         static_cast<size_t>(4) * ncols * 256;
+}
+
+// The rolls of the band kernel's directions, in roll order.
+__device__ __forceinline__ int band_roll(int k) {
+  return k == 0 ? 0 : (k == 1 ? 1 : -1);
+}
+
+// B5's structure (see census_y_kernel) with the cost of a staged volume row
+// and out written, not added: each orientation's scan runs down axis 0 as
+// `nbands` bands of rows (volume axis 1), one block each, the row state of
+// the three directions in shared memory, the diagonal carries that leave a
+// band through the tagged halo ring, one block barrier per step.  Step t's
+// band row of the volume (ncols D contiguous bf16) is staged two steps
+// ahead; in the second half so are the other orientation's totals of the
+// band's rows, and each warp writes f32(own) + f32(other) of its rows.
+template <bool BF16>
+__global__ void __launch_bounds__(kYThreads, 1)
+    axis_band_kernel(const AxisBand a) {
+  constexpr int G = 3;
+  const int nbands = a.nbands;
+  const int o = blockIdx.x / nbands;        // 0 forward, 1 backward
+  const int band = blockIdx.x - o * nbands;
+  const int L = a.L, R = a.R, D = a.D, min_d = a.min_d, ncols = a.ncols;
+  const int x0 = band * ncols;
+  const int nb = min(ncols, R - x0);        // rows of this band
+  const int S = ncols + 2;                  // state columns: halo, band, halo
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ca = warp * a.cpw, cb = min(nb, ca + a.cpw);  // warp's rows
+  // halo sides as in B5: side 0 carries the roll +1 carries of a band's
+  // last row to the band after it, side 1 the roll -1 carries of its first
+  // row to the band before it
+  const bool from_left = band > 0, from_right = band < nbands - 1;
+  const bool to_right = from_right, to_left = from_left;
+  auto halo_at = [&](int bnd, int side, int k, int t) {
+    return a.halo +
+           ((((static_cast<size_t>(o) * nbands + bnd) * 2 + side) * G + k) *
+                kHaloRows +
+            t % kHaloRows) *
+               128 +
+           4 * lane;
+  };
+  unsigned* done = reinterpret_cast<unsigned*>(
+                       a.halo + static_cast<size_t>(2) * nbands * 2 * G *
+                                    kHaloRows * 128) +
+                   o * nbands;
+
+  extern __shared__ __align__(16) float smem_b[];
+  float* state = smem_b;                                    // [2][G][S][128]
+  const int row_bytes = band_row_bytes(ncols, D);
+  unsigned char* vrows =                                    // [kVRing][row_bytes]
+      reinterpret_cast<unsigned char*>(state + 2 * G * S * 128);
+  uint2* obuf = reinterpret_cast<uint2*>(vrows + kVRing * row_bytes);  // [4][ncols][32]
+  for (int i = tid; i < 2 * G * S * 128; i += nthreads)
+    state[i] = (i & 127) < D ? 0.0f : CUDART_INF_F;
+  auto row_y = [&](int t) { return o == 0 ? t : L - 1 - t; };
+  auto band_row = [&](int t) {
+    return a.v + (static_cast<size_t>(row_y(t)) * R + x0) * D;
+  };
+  auto vfetch = [&](int t) {
+    if (t < L)
+      stage_run(vrows + (t % kVRing) * row_bytes, band_row(t), 2 * nb * D,
+                tid, nthreads);
+  };
+  // step s's other totals of the band's rows into buffer s & 3
+  auto prefetch = [&](int s) {
+    const int b = s & 3;
+    const size_t r = static_cast<size_t>(row_y(s)) * R + x0;
+    for (int i = tid; i < nb * 16; i += nthreads)
+      cp_async16(reinterpret_cast<char*>(obuf + b * ncols * 32) + 16 * i,
+                 reinterpret_cast<const char*>(a.slab + r * 128) + 16 * i);
+  };
+
+  const float p1v = BF16 ? round_bf16(a.p1) : a.p1;
+  const float p2v = BF16 ? round_bf16(a.p2) : a.p2;
+  const Edges edges = lane_edges(lane);
+  const int GS = G * S * 128;               // floats of one state buffer
+  const int first = o == 0 ? L / 2 : L - L / 2;   // steps before the meeting
+  const unsigned* other_done = done + (1 - 2 * o) * nbands + band;
+
+  // Step t of band row cx (volume row x = x0 + cx), as B5's column_step.
+  auto row_step = [&](int t, int cx, int rb, const unsigned short* vrow) {
+    const int x = x0 + cx;
+    const bool in_left = t > 0 && from_left && cx == 0;
+    const bool in_right = t > 0 && from_right && cx == nb - 1;
+    const bool out_right = to_right && cx == nb - 1 && t + 1 < L;
+    const bool out_left = to_left && cx == 0 && t + 1 < L;
+    const bool halo = in_left || in_right || out_right || out_left;
+    bool ext[G];
+    unsigned long long hv[G][4];
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      ext[k] = (band_roll(k) > 0 && in_left) || (band_roll(k) < 0 && in_right);
+    auto halo_in = [&](int k) {
+      return band_roll(k) > 0 ? halo_at(band - 1, 0, k, t - 1)
+                              : halo_at(band + 1, 1, k, t - 1);
+    };
+    if (halo) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (ext[k]) {
+          const unsigned long long* h = halo_in(k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hv[k][j] = load_tagged(h + j);
+        }
+      }
+    }
+    const Planes c = volume_cost(vrow + cx * D, D, lane);
+    const bool restart_x = a.entry == 1 && o == 0 && entry_column(t, min_d);
+    const bool restart_y = a.entry == 2 && entry_column(x, min_d);
+    Planes Lk[G];
+    auto step = [&](int k, const Planes& carry) {
+      Lk[k] = warp_dp<BF16>(carry, c, p1v, p2v, edges);
+      if (restart_x) entry_restart(Lk[k], c, t, min_d, lane);
+      if (restart_y && band_roll(k) == 1) entry_restart(Lk[k], c, x, min_d, lane);
+    };
+    auto publish = [&]() {
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        unsigned long long* h = nullptr;
+        if (band_roll(k) > 0 && out_right) h = halo_at(band, 0, k, t);
+        if (band_roll(k) < 0 && out_left) h = halo_at(band, 1, k, t);
+        if (h != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) store_tagged(h + j, Lk[k].v[j], t + 1);
+        }
+      }
+    };
+    const int st = (cx + 1) * 128 + 4 * lane;
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if (!ext[k])
+        step(k, load4(state + rb + st + (k * S - band_roll(k)) * 128));
+    if (halo) {
+      // with one row a band's outgoing carries need the incoming ones
+      const bool late = nb == 1;
+      if ((out_right || out_left) && !late) publish();
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (!ext[k]) continue;
+        const unsigned long long* h = halo_in(k);
+        Planes hc;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          while (static_cast<unsigned>(hv[k][j] >> 32) !=
+                 static_cast<unsigned>(t))
+            hv[k][j] = load_tagged(h + j);
+          hc.v[j] = __uint_as_float(static_cast<unsigned>(hv[k][j]));
+        }
+        step(k, hc);
+      }
+      if ((out_right || out_left) && late) publish();
+    }
+    Planes tot;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      store4(state + (GS - rb) + st + k * S * 128, Lk[k]);
+      if (k == 0) {
+        tot = Lk[k];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          tot.v[j] = tot.v[j] + Lk[k].v[j];
+          if (BF16) tot.v[j] = round_bf16(tot.v[j]);
+        }
+      }
+    }
+    const size_t row = static_cast<size_t>(row_y(t)) * R + x;
+    if (t < first) {
+      store_bf16x4(a.slab + row * 128 + 4 * lane, tot);
+    } else {
+      store_sum(a.out + row * D, tot,
+                obuf[((t & 3) * ncols + cx) * 32 + lane], D, lane);
+    }
+  };
+
+  vfetch(0);
+  cp_async_commit();
+  vfetch(1);
+  cp_async_commit();
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+  __syncthreads();
+  for (int t = 0; t < L; ++t) {
+    if (t == first) {
+      // the meeting, as in B5: wait once for the other scan's first half,
+      // then this step's and the next step's other totals
+      while (load_acquire(other_done) < static_cast<unsigned>(L - first)) {
+      }
+      prefetch(t);
+      if (t + 1 < L) prefetch(t + 1);
+      cp_async_commit();
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+    }
+    // one group per step: step t + 2's band row (and other totals)
+    vfetch(t + 2);
+    if (t >= first && t + 2 < L) prefetch(t + 2);
+    cp_async_commit();
+    const unsigned short* vrow =
+        reinterpret_cast<const unsigned short*>(vrows +
+                                                (t % kVRing) * row_bytes) +
+        run_offset(band_row(t));
+    const int rb = (t & 1) * GS;
+    for (int cx = ca; cx < cb; ++cx) row_step(t, cx, rb, vrow);
+    // step t + 1's group is complete; the barrier shows it, and this step's
+    // state, to every warp
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();   // the step's slab stores before the count
+      store_relaxed(done + band, t + 1);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// B4: axis scan of a materialized (L, R, D) bf16 volume -> f32 (L, R, D).
-// scratch: 2 * g * L * R * D floats.
-int sgm_axis_scan(const void* v, float* scratch, float* out, int L, int R,
-                  int D, int g, int roll0, int roll1, int roll2, float p1,
-                  float p2, int carry_bf16, int entry, int min_d,
-                  void* stream) {
+// B4 for 128 < D <= 1024: PR 2's line kernel and combine pass over an f32
+// scratch of 2 * g * L * R * D floats (any roll set of 1-3 shifts).
+int sgm_axis_lines(const void* v, float* scratch, float* out, int L, int R,
+                   int D, int g, int roll0, int roll1, int roll2, float p1,
+                   float p2, int carry_bf16, int entry, int min_d,
+                   void* stream) {
   if (D < 1 || D > kMaxThreads || g < 1 || g > 3) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const VolumeCost cost{static_cast<const __nv_bfloat16*>(v), R, D};
@@ -1115,6 +1586,45 @@ int sgm_axis_scan(const void* v, float* scratch, float* out, int L, int R,
     combine_axis_kernel<false><<<blocks, 256, 0, s>>>(scratch, out, n, g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// B4 for D <= 128 -> f32 out (L, R, D).  slab: bf16 (L, R, 128).  Rolls (0):
+// axis_line_kernel, R blocks of 64 threads (the geometry arguments
+// are not read).  Rolls
+// (0, +1, -1): axis_band_kernel, 2 * nbands blocks of `threads` threads
+// with `smem` bytes (the plan's), halo: census_y_halo_bytes(3, nbands)
+// bytes, zeroed here.  v must be 16-byte aligned.
+int sgm_axis_warp(const void* v, float* out, void* slab, void* halo, int L,
+                  int R, int D, int g, int roll0, int roll1, int roll2,
+                  float p1, float p2, int carry_bf16, int entry, int min_d,
+                  int nbands, int ncols, int cpw, int threads, int smem,
+                  void* stream) {
+  if (D < 1 || D > 128 || L < 1 || R < 1 || entry < 0 || entry > 2 ||
+      !census_y_rolls_ok(g, roll0, roll1, roll2) ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* sl = static_cast<__nv_bfloat16*>(slab);
+  if (g == 1) {
+    auto kernel =
+        carry_bf16 ? axis_line_kernel<true> : axis_line_kernel<false>;
+    kernel<<<R, 64, 0, s>>>(vb, out, sl, L, R, D, p1, p2, entry == 1,
+                            min_d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!bands_ok(R, nbands, ncols, cpw, threads) || smem > kMaxSmem ||
+      static_cast<size_t>(smem) != axis_band_smem(D, ncols))
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaMemsetAsync(halo, 0, census_y_halo_bytes(3, nbands), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const AxisBand a{vb, out, sl, static_cast<unsigned long long*>(halo), L, R,
+                   D, min_d, ncols, cpw, nbands, entry, p1, p2};
+  return carry_bf16 ? launch_cooperative(axis_band_kernel<true>, a,
+                                         2 * nbands, threads, smem, s)
+                    : launch_cooperative(axis_band_kernel<false>, a,
+                                         2 * nbands, threads, smem, s);
 }
 
 // B6: the x family of the census aggregate, written to out (D, H, W).

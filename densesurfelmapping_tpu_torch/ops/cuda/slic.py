@@ -6,8 +6,8 @@ a CPU tensor it runs that twin; on a CUDA tensor it checks the inputs,
 launches the kernel on the current stream and raises if the launch failed;
 it never falls back.  `LAUNCHES` counts the kernel launches per kernel.
 
-The launch geometry of B2 and B3 comes from `centroid_plan` and
-`huber_plan`, plain Python that the CPU tests check
+The launch geometry of the kernels comes from `assign_plan`,
+`centroid_plan` and `huber_plan`, plain Python that the CPU tests check
 (tests/test_torch_slic_plan.py).
 """
 
@@ -27,12 +27,29 @@ LAUNCHES = {"slic_assign": 0, "slic_centroid": 0, "slic_huber": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "slic_assign": [_P] * 10 + [_I] * 6 + [_P],
+    "slic_assign": [_P] * 10 + [_I] * 10 + [_P],
     "slic_centroid": [_P] * 4 + [_I] * 10 + [_P],
     "slic_huber": [_P] * 5 + [_I] * 10 + [_F, _P],
 }
 MAX_SMEM = 232448         # shared memory one block may opt into (H100)
 STRIP_SEEDS = 8           # B2/B3: seeds (warps) of a block, csrc kStripSeeds
+ASSIGN_TILE = (32, 32)    # B1: pixel rows and columns of a block's tile
+ASSIGN_THREADS = (32, 8)  # B1: threads of a block (x, y); 4 rows a thread
+
+
+class AssignPlan(NamedTuple):
+    """B1 geometry: block (bx, by) takes the pixels of the tile whose corner
+    is (y0, x0) = (by, bx) * ASSIGN_TILE, thread (lx, ly) the pixels (y0 +
+    ly + 8 k, x0 + lx), k < rows_per_thread.  It stages the seed cells
+    [y0 // sp - 1, + staged[0]) x [x0 // sp - 1, + staged[1]): every cell the
+    tile touches and a one-seed ring, the most any block needs.  Shared
+    memory: a float4 and two ints per staged seed, an int per tile row."""
+    grid: tuple                # (blocks along x, along y)
+    threads: tuple             # (32, 8)
+    tile: tuple                # (rows, columns) of pixels
+    rows_per_thread: int
+    staged: tuple              # (nsy, nsx) seed cells
+    smem: int                  # bytes of dynamic shared memory per block
 
 
 class StripPlan(NamedTuple):
@@ -59,6 +76,23 @@ class StripPlan(NamedTuple):
 def _check_sp(sp: int) -> None:
     if not 2 <= sp <= 16:
         raise ValueError(f"sp_size {sp} outside the kernels' range 2..16")
+
+
+def _cells_spanned(n: int, tile: int, sp: int) -> int:
+    """The most seed cells a tile of `tile` pixels from a multiple of `tile`
+    touches along an axis of n pixels."""
+    return max((t + tile - 1) // sp - t // sp + 1 for t in range(0, n, tile))
+
+
+def assign_plan(h: int, w: int, sp: int) -> AssignPlan:
+    """B1 over a padded (h, w) frame at seed pitch sp."""
+    _check_sp(sp)
+    ty, tx = ASSIGN_TILE
+    staged = (_cells_spanned(h, ty, sp) + 2, _cells_spanned(w, tx, sp) + 2)
+    return AssignPlan(
+        grid=(math.ceil(w / tx), math.ceil(h / ty)), threads=ASSIGN_THREADS,
+        tile=ASSIGN_TILE, rows_per_thread=ty // ASSIGN_THREADS[1],
+        staged=staged, smem=24 * staged[0] * staged[1] + 4 * ty)
 
 
 def _strip_plan(rows: int, cols: int, sp: int, planes: int,
@@ -133,7 +167,9 @@ def _launched(name: str, err: int) -> None:
 def slic_assign(config: SurfelMapConfig, image, inv_depth, assignment,
                 x, y, mean_intensity, mean_depth, stable):
     """B1: one pixel-assignment sweep -> (new_assignment (H, W) i32,
-    claimed (R, C) bool).  Plain twin: `superpixel.assign_sweep`."""
+    claimed (R, C) bool).  Plain twin: `superpixel.assign_sweep`.  The
+    kernel writes the bool claims itself (the C entry zeroes them first):
+    two device operations per call, the memset and the kernel."""
     if image.device.type == "cpu":
         return plain.assign_sweep(config, image, inv_depth, assignment, x, y,
                                   mean_intensity, mean_depth, stable)
@@ -149,14 +185,15 @@ def slic_assign(config: SurfelMapConfig, image, inv_depth, assignment,
             _check("mean_intensity", mean_intensity, f32, rc, dev),
             _check("mean_depth", mean_depth, f32, rc, dev),
             _check("stable", stable, torch.bool, rc, dev)]
+    plan = assign_plan(*hw, config.sp_size)
     new_assignment = torch.empty(hw, dtype=i32, device=dev)
-    claimed = torch.zeros(rc, dtype=i32, device=dev)
+    claimed = torch.empty(rc, dtype=torch.bool, device=dev)
     err = lib.slic_assign(*ptrs, new_assignment.data_ptr(),
-                          claimed.data_ptr(), hw[0], hw[1], rc[1],
-                          config.height, config.width, config.sp_size,
-                          stream)
+                          claimed.data_ptr(), *hw, *rc, config.height,
+                          config.width, config.sp_size, *plan.staged,
+                          plan.smem, stream)
     _launched("slic_assign", err)
-    return new_assignment, claimed != 0
+    return new_assignment, claimed
 
 
 def slic_centroid(config: SurfelMapConfig, image, depth, assignment):

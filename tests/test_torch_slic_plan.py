@@ -1,8 +1,9 @@
-"""The launch plans of the SLIC kernels B2 and B3
-(`ops/cuda/slic.py::centroid_plan`, `huber_plan`): plain Python, checked
-here on the CPU for every seed pitch the kernels take (sp 2..16), on KITTI's
-seed grid (47 x 160) and small or odd ones, by replaying the kernels'
-indexing as `csrc/slic.cu` writes it (`Strip`, `WindowWalk`)."""
+"""The launch plans of the SLIC kernels B1, B2 and B3
+(`ops/cuda/slic.py::assign_plan`, `centroid_plan`, `huber_plan`): plain
+Python, checked here on the CPU for every seed pitch the kernels take (sp
+2..16), on KITTI's seed grid (47 x 160) and small or odd ones, by replaying
+the kernels' indexing as `csrc/slic.cu` writes it (B1's tiles and candidate
+slots, `Strip`, `WindowWalk`)."""
 
 import math
 
@@ -124,3 +125,67 @@ def test_strip_kernels_take_16_byte_rows_only(w, ptrs, ok):
     else:
         with pytest.raises(ValueError, match="16-byte aligned"):
             kslic._check_chunks(w, ptrs)
+
+
+# padded frames (h, w): KITTI, chip_smoke.py's 120 x 56 frame padded at sp
+# 6 and 16, and odd ones
+FRAMES = [(376, 1280), (60, 120), (64, 128), (33, 70), (5, 7)]
+
+
+def _assign_axis(n: int, tile: int, sp: int, staged: int) -> None:
+    """B1 along one axis of n pixels: the tiles [t0, t0 + tile) cover it
+    once, and each pixel's candidate slots (from its tile's staged cells
+    [t0 // sp - 1, + staged), slot b of b < 2 at the staged index
+    cell - first cell - (r < sp/2), the slot b = 1 off where r == sp/2)
+    are the seed offsets the reference's gate |off sp + sp/2 - r| < sp
+    admits, in ascending order, all inside the staged cells."""
+    half = sp // 2
+    hits = np.zeros(n, np.int64)
+    for t0 in range(0, n, tile):
+        first = t0 // sp - 1
+        for p in range(t0, min(t0 + tile, n)):
+            hits[p] += 1
+            cell, r = p // sp, p % sp
+            base = cell - first - (r < half)
+            slots = [base + b for b in range(1 if r == half else 2)]
+            assert 0 <= slots[0] and slots[-1] < staged
+            gate = [cell + off for off in (-1, 0, 1)
+                    if abs(off * sp + half - r) < sp]
+            assert [first + s for s in slots] == gate
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("sp", SPS)
+@pytest.mark.parametrize("frame", FRAMES)
+def test_assign_plan_covers_and_fits(frame, sp):
+    h, w = frame
+    plan = kslic.assign_plan(h, w, sp)
+    th, tw = plan.tile
+    assert plan.grid == (math.ceil(w / tw), math.ceil(h / th))
+    assert plan.threads[0] == tw and plan.threads[1] * (
+        plan.rows_per_thread) == th
+    _assign_axis(h, th, sp, plan.staged[0])
+    _assign_axis(w, tw, sp, plan.staged[1])
+    # a float4 and two ints per staged seed, an int per tile row; the row
+    # table packs (cell - first cell) << 8 | offset
+    nsy, nsx = plan.staged
+    assert plan.smem == 24 * nsy * nsx + 4 * th <= kslic.MAX_SMEM
+    assert nsy < 256 and nsx <= 255 and sp < 256
+
+
+def test_kitti_assign_plan_as_documented():
+    """KITTI (376 x 1280 padded, sp 8): 40 x 12 blocks of 32 x 8 threads,
+    4 pixels a thread; a tile is 4 x 4 seed cells, staged with their ring as
+    6 x 6 seeds (992 B of shared memory).  sp 6 and 16, the other pitches
+    chip_smoke.py checks on the card, stage 8 x 8 and 4 x 4."""
+    p = kslic.assign_plan(376, 1280, 8)
+    assert (p.grid, p.threads, p.rows_per_thread) == ((40, 12), (32, 8), 4)
+    assert (p.staged, p.smem) == ((6, 6), 992)
+    assert kslic.assign_plan(376, 1280, 6).staged == (8, 8)
+    assert kslic.assign_plan(376, 1280, 16).staged == (4, 4)
+
+
+@pytest.mark.parametrize("sp", [1, 17, 0])
+def test_assign_plan_refuses_sp_outside_the_kernels_range(sp):
+    with pytest.raises(ValueError, match="range 2..16"):
+        kslic.assign_plan(56, 120, sp)
