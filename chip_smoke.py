@@ -30,7 +30,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
                check against the rendered depth, the peak device memory; the
                fused-census, plain and materialized-volume (B4) matchers build
                the same map, and the materialized drive's peak memory
-  8. profile - device ms/frame of the stereo drive by fuse-step scope and
+  8. cli     - the port's CLI in this process (cli.main, --device cuda) on
+               KITTI-size frames: the native library is required; the
+               host pack timed native vs numpy; synthetic --loop --eval
+               (the seven outputs, MAE < 0.3 m, 3 SLIC launches of each
+               kernel per frame + 3 for the segmentation render),
+               synthetic --stereo --sgm --eval (MAE < 0.5 m, B5/B6 once per
+               frame), stress --frames 120 --radius 15 (post-correction MAE
+               below pre-correction), kitti and replay over a generated
+               KITTI-layout directory read by io/png.py with cv2 and PIL
+               unimportable (banks equal to a directly fed
+               DeviceResidentMapping within 1e-5 m); writes under build/cli/
+  9. profile - device ms/frame of the stereo drive by fuse-step scope and
                of the SGM and SLIC kernels
 A kernel's time is its device time from the profiler's records of that
 kernel (`kernel_time`), printed beside the wrapper's host time per call; a
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -784,6 +796,305 @@ def phase_stereo(device) -> dict:
     return dict(sgm_n, sgm_axis_scan=mat_n["sgm_axis_scan"])
 
 
+CLI_DIR = "build/cli"
+CLI_OUTPUTS = (".pcd", "_mesh.ply", "_cameras.ply", ".ckpt.npz",
+               "_traj.txt", "_mapdepth.png", "_seg.png")
+LOOP_MAE_M = 0.3       # the verify recipe's gates for these two commands
+STEREO_MAE_M = 0.5
+KITTI_BANK_TOL_M = 1e-5
+N_KITTI_FRAMES = 8
+
+
+def run_cli(argv) -> tuple:
+    """The port's cli.main(argv) in this process, its stdout captured and
+    echoed under [cli]; returns (exit code, stdout, wall s)."""
+    import contextlib
+    import io
+    from densesurfelmapping_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    say("cli", f"$ python -m densesurfelmapping_tpu_torch {' '.join(argv)}"
+        f"  -> rc {rc}, {wall:.1f} s")
+    for ln in buf.getvalue().splitlines():
+        say("cli", "  " + ln)
+    return rc, buf.getvalue(), wall
+
+
+def cli_line(out: str, prefix: str) -> str:
+    return next(ln for ln in out.splitlines() if ln.startswith(prefix))
+
+
+def cli_json(out: str, prefix: str) -> dict:
+    return json.loads(cli_line(out, prefix)[len(prefix):])
+
+
+def frames_fused(out: str) -> int:
+    return int(cli_line(out, "frames fused:").split(",")[0].split()[-1])
+
+
+def write_gray_png(path: str, img: np.ndarray) -> None:
+    """8-bit gray PNG, filter type 0, in a few lines of zlib."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    h, w = img.shape
+    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def counted(fn):
+    """fn() with every kernel count set to 0 just before and read just
+    after; returns (fn's result, {kernel: launches})."""
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as KS
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+    K.reset_launch_counts()
+    KS.reset_launch_counts()
+    res = fn()
+    return res, dict(K.LAUNCHES, **KS.LAUNCHES)
+
+
+def phase_cli(device) -> dict:
+    """The port's CLI end to end on the card (cli.main in this process, the
+    default --device cuda): the loop scene with --eval, --stereo --sgm with
+    --eval, the radius-15 stress run, and kitti + replay over a generated
+    KITTI-layout directory.  Returns the kernel launches of its runs."""
+    import importlib.util
+    import os
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core import state as S
+    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+    from densesurfelmapping_tpu_torch.io import png, synthetic
+    from densesurfelmapping_tpu_torch.io.kitti import bf_for_sequence
+    from densesurfelmapping_tpu_torch.io.posefeed import PoseFeed
+    from densesurfelmapping_tpu_torch.native import loader as native
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping)
+
+    t_phase = time.perf_counter()
+    # the card's path packs and writes through the native library: no numpy
+    # fallback may pass silently here
+    require(native.available(), "the native library (g++ build of "
+            "native/surfel_native.cpp) is not available")
+    libs = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL")}
+    say("cli", "native library built and loaded; image libraries: "
+        + ", ".join(f"{m} {'present' if v else 'absent'}"
+                    for m, v in libs.items())
+        + "; kitti and replay below read their PNGs with io/png.py (cv2 "
+        "and PIL made unimportable for those two runs)")
+    os.makedirs(CLI_DIR, exist_ok=True)
+    cfg = kitti_config()
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # the host pack of one KITTI frame: native encoder against numpy
+    img, dep = synthetic.default_scene().render(cfg, np.eye(4))
+    aux = S.pack_aux(np.eye(4), 0, np.zeros(cfg.max_keyframes, bool))
+
+    def numpy_pack():
+        ci, cd = S.compact_frame(cfg, img, dep)
+        out = np.empty(3 * ci.size + aux.size, np.uint8)
+        out[:3 * ci.size] = np.concatenate([ci.reshape(-1),
+                                            cd.reshape(-1).view(np.uint8)])
+        out[3 * ci.size:] = aux
+        return out
+
+    require(np.array_equal(S.pack_frame_with_aux(cfg, img, dep, aux),
+                           numpy_pack()), "native pack != numpy pack")
+    pack_ms = {}
+    for name, fn in (("native", lambda: S.pack_frame_with_aux(
+            cfg, img, dep, aux)), ("numpy", numpy_pack)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        pack_ms[name] = 1e3 * (time.perf_counter() - t0) / 50
+    say("cli", f"host pack of one KITTI frame + aux (pack_frame_with_aux): "
+        f"native {pack_ms['native']:.3f} ms, numpy {pack_ms['numpy']:.3f} ms "
+        f"(mean of 50, host clock; bitwise equal)")
+
+    # 2. the loop scene with --eval (the verify recipe's command)
+    loop = f"{CLI_DIR}/loop"
+    (rc, out, _), n = counted(lambda: run_cli(
+        ["synthetic", "--frames", "60", "--loop", "--kf-every", "2", "--eval",
+         "--out", loop]))
+    add(n)
+    require(rc == 0, f"synthetic --loop: rc {rc}")
+    for suffix in CLI_OUTPUTS:
+        require(os.path.exists(loop + suffix)
+                and os.path.getsize(loop + suffix) > 0,
+                f"synthetic --loop: {loop + suffix} missing or empty")
+    ckpt = np.load(loop + ".ckpt.npz")
+    require(int(ckpt["bank_count"]) > 0, "loop checkpoint: empty bank")
+    fid = cli_json(out, "fidelity: ")
+    require(fid.get("mae", float("inf")) < LOOP_MAE_M,
+            f"synthetic --loop: fidelity MAE {fid.get('mae')} >= {LOOP_MAE_M}")
+    fused = frames_fused(out)
+    want = cfg.sp_iters * (fused + 1)      # + the _seg.png render
+    require(all(n[k] == want for k in ("slic_assign", "slic_centroid",
+                                       "slic_huber"))
+            and n["sgm_census_x"] == n["sgm_census_y"] == 0,
+            f"synthetic --loop: launches {n}, want {want} of each SLIC "
+            f"kernel ({fused} frames + the segmentation render)")
+    say("cli", f"synthetic --loop: rc 0, the seven outputs written, "
+        f"{int(ckpt['bank_count'])} surfels in the checkpoint, MAE "
+        f"{fid['mae']} m (< {LOOP_MAE_M}); launches {n}")
+
+    # 3. stereo-resident, census SGM
+    st = f"{CLI_DIR}/stereo"
+    (rc, out, _), n = counted(lambda: run_cli(
+        ["synthetic", "--frames", "40", "--stereo", "--sgm", "--kf-every",
+         "2", "--eval", "--out", st]))
+    add(n)
+    require(rc == 0, f"synthetic --stereo --sgm: rc {rc}")
+    fid = cli_json(out, "fidelity: ")
+    require(fid.get("mae", float("inf")) < STEREO_MAE_M,
+            f"synthetic --stereo --sgm: MAE {fid.get('mae')} >= "
+            f"{STEREO_MAE_M}")
+    fused = frames_fused(out)
+    require(n["sgm_census_x"] == n["sgm_census_y"] == fused
+            and n["sgm_axis_scan"] == 0,
+            f"synthetic --stereo --sgm: launches {n}, want B5/B6 once for "
+            f"each of {fused} frames")
+    require(n["slic_assign"] == cfg.sp_iters * (fused + 1),
+            f"synthetic --stereo --sgm: SLIC launches {n}")
+    say("cli", f"synthetic --stereo --sgm: rc 0, MAE {fid['mae']} m "
+        f"(< {STEREO_MAE_M}); launches {n}")
+
+    # 4. the loop-closure stress run, depth-fed.  120 frames: at 48 the
+    # post-correction MAE read above the pre-correction one on the card (the
+    # two average different eval frames); the host renders this scene at
+    # ~1.3 s a frame, ~170 s of the phase
+    (rc, out, _), n = counted(lambda: run_cli(
+        ["stress", "--frames", "120", "--radius", "15", "--kf-every", "2",
+         "--out", f"{CLI_DIR}/stress"]))
+    add(n)
+    require(rc == 0, f"stress: rc {rc}")
+    pre = cli_json(out, "fidelity pre-correction: ")
+    post = cli_json(out, "fidelity post-correction:")
+    require(post["mae"] < pre["mae"], f"stress: post-correction MAE "
+            f"{post['mae']} not below pre-correction {pre['mae']}")
+    require(n["slic_assign"] > 0, f"stress: launches {n}")
+    say("cli", f"stress: rc 0, MAE pre {pre['mae']} -> post {post['mae']} m; "
+        f"launches {n}")
+
+    # 5. kitti over a generated KITTI-layout directory, then replay
+    root = f"{CLI_DIR}/kitti_seq"
+    for d in ("image_0", "depth_0"):
+        os.makedirs(f"{root}/{d}", exist_ok=True)
+    bf = bf_for_sequence(0)
+    scene = synthetic.default_scene()
+    poses = synthetic.forward_trajectory(N_KITTI_FRAMES, step=0.4)
+    frames = []
+    for i, pose in enumerate(poses):
+        img, dep = scene.render(cfg, pose)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        write_gray_png(f"{root}/image_0/{i:06d}.png", img)
+        with np.errstate(divide="ignore"):
+            disp = np.where(dep > 0, bf / dep, 0.0).astype(np.float32)
+        np.save(f"{root}/depth_0/{i:06d}.npy", disp)
+        # the depth as KittiSequence computes it from the disparity
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d = bf / disp
+        frames.append((img, np.where(np.isfinite(d) & (d > 0), d, 0.0)
+                       .astype(np.float32)))
+    with open(f"{root}/poses.txt", "w") as f:
+        for p in poses:
+            f.write(" ".join(repr(float(v)) for v in p[:3].reshape(-1))
+                    + "\n")
+    feed = PoseFeed.from_poses(poses, stamps=[i / 5.0 for i in
+                                              range(len(poses))],
+                               keyframe_every=2)
+    feed_path = f"{CLI_DIR}/kitti_feed.npz"
+    PoseFeed.save(feed_path, feed.messages)
+    # the readers try cv2, then PIL, then io/png.py: make the first two
+    # unimportable so that the decoder runs on every machine
+    blocked = {m: sys.modules.pop(m, None) for m in ("cv2", "PIL")}
+    sys.modules.update(dict.fromkeys(blocked))
+    try:
+        for i, (img, _) in enumerate(frames):
+            require(np.array_equal(png.read_png(
+                f"{root}/image_0/{i:06d}.png"), img), "io/png.py misread "
+                f"image_0/{i:06d}.png")
+        (rc, _, _), n = counted(lambda: run_cli(
+            ["kitti", "--root", root, "--kf-every", "2",
+             "--out", f"{CLI_DIR}/kitti"]))
+        add(n)
+        (rc_r, _, _), n_r = counted(lambda: run_cli(
+            ["replay", "--feed", feed_path, "--root", root, "--out",
+             f"{CLI_DIR}/replay"]))
+        add(n_r)
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    require(rc == 0 and n["slic_assign"] > 0, f"kitti: rc {rc}, launches "
+            f"{n}")
+    require(rc_r == 0 and n_r["slic_assign"] > 0, f"replay: rc {rc_r}, "
+            f"launches {n_r}")
+
+    def drive_direct(messages):
+        """DeviceResidentMapping fed the frames' arrays directly: pose
+        messages as kitti builds them, or a recorded feed's."""
+        drv = DeviceResidentMapping(cfg, device=device)
+        for i, (img, dep) in enumerate(frames):
+            if messages is None:
+                drv.feed_pose(i / 5.0, poses[i], is_keyframe=(i % 2 == 0))
+            else:
+                m = messages[i]
+                drv.feed_pose(m.stamp, m.pose, loop_path=m.loop_path,
+                              loop_edges=m.loop_edges,
+                              is_keyframe=m.is_keyframe,
+                              reference_index=m.reference_index)
+            drv.feed_image(i / 5.0, img)
+            drv.feed_depth(i / 5.0, dep)
+        rows = bank_to_numpy(drv.bank)
+        drv.close()
+        return rows
+
+    def bank_err(path, direct):
+        z = np.load(path)
+        require(int(z["bank_count"]) == len(direct["color"]) > 0,
+                f"{path}: {int(z['bank_count'])} surfels, the direct drive "
+                f"{len(direct['color'])}")
+        for k in ("update_times", "last_update"):
+            require(np.array_equal(z[f"bank_{k}"], direct[k]),
+                    f"{path}: bank {k} differs from the direct drive")
+        return max(float(np.abs(z[f"bank_{k}"] - direct[k]).max())
+                   for k in ("position", "normal", "color", "size",
+                             "weight"))
+
+    err = bank_err(f"{CLI_DIR}/kitti.ckpt.npz", drive_direct(None))
+    require(err <= KITTI_BANK_TOL_M, f"kitti: bank off the direct drive's "
+            f"by {err}")
+    err_r = bank_err(f"{CLI_DIR}/replay.ckpt.npz",
+                     drive_direct(feed.messages))
+    require(err_r <= KITTI_BANK_TOL_M, f"replay: bank off the direct "
+            f"drive's by {err_r}")
+    say("cli", f"kitti and replay over {N_KITTI_FRAMES} KITTI-size frames "
+        f"read from PNG (io/png.py, exact) + disparity files: rc 0, banks "
+        f"equal to a DeviceResidentMapping fed the same arrays (max abs err "
+        f"{err:.3g} / "
+        f"{err_r:.3g}, bound {KITTI_BANK_TOL_M})")
+    say("cli", f"phase wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches in its runs {total}")
+    return total
+
+
 def phase_profile(device) -> None:
     """Device time per frame of the stereo drive by fuse-step scope (a
     measurement: it prints what the profiler reports and checks nothing)."""
@@ -907,6 +1218,8 @@ def main() -> None:
         f"{fps_p:.2f} frames/s pipelined, same map ({smi})")
 
     launches.update(phase_stereo(device))
+    for name, n in phase_cli(device).items():
+        launches[name] += n
     phase_profile(device)
 
     kernels = []

@@ -70,6 +70,60 @@ def rotate_vectors_batched(Ts: torch.Tensor, vecs: torch.Tensor,
     return torch.einsum("nij,nj->ni", R, vecs)
 
 
+def pose_matrix(quat_wxyz, position) -> np.ndarray:
+    """(w,x,y,z) quaternion + translation -> 4x4 matrix (host-side, numpy).
+
+    Equivalent of `SurfelMap::pose_ros2eigen` (`surfel_map.cpp:367-379`).
+    """
+    w, x, y, z = [float(v) for v in quat_wxyz]
+    n = (w * w + x * x + y * y + z * z) ** 0.5
+    w, x, y, z = w / n, x / n, y / n, z / n
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], dtype=np.float64)
+    T = np.eye(4, dtype=np.float64)
+    T[:3, :3] = R
+    T[:3, 3] = np.asarray(position, dtype=np.float64)
+    return T
+
+
+def matrix_to_quat_pos(T: np.ndarray):
+    """4x4 -> ((w,x,y,z), (px,py,pz)) (host-side numpy).
+
+    Equivalent of `SurfelMap::pose_eigen2ros` (`surfel_map.cpp:381-391`).
+    """
+    R = np.asarray(T, dtype=np.float64)[:3, :3]
+    t = np.asarray(T, dtype=np.float64)[:3, 3]
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        w = (R[2, 1] - R[1, 2]) / s
+        x = 0.25 * s
+        y = (R[0, 1] + R[1, 0]) / s
+        z = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        w = (R[0, 2] - R[2, 0]) / s
+        x = (R[0, 1] + R[1, 0]) / s
+        y = 0.25 * s
+        z = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        w = (R[1, 0] - R[0, 1]) / s
+        x = (R[0, 2] + R[2, 0]) / s
+        y = (R[1, 2] + R[2, 1]) / s
+        z = 0.25 * s
+    return (w, x, y, z), tuple(t)
+
+
 def invert_se3(T: np.ndarray) -> np.ndarray:
     """Closed-form SE3 inverse (host-side numpy)."""
     T = np.asarray(T, dtype=np.float64)

@@ -5,8 +5,9 @@ Counterpart of the JAX package's `core/state.py`: the same fields, shapes and
 dtypes, as plain dataclasses of `torch.Tensor`s on one device.  The surfel
 store (reference `SurfelElement`, `elements.h:22-31`) has a fixed capacity
 with masked liveness; the fuse step updates it in place.  The codecs are the
-numpy encoding path of the JAX package (its native C++ encoder is pinned
-bitwise to that path by its tests).
+numpy encoding path of the JAX package; f32 frames take the native C++
+encoder (`native/loader.py`) where it is available, which is pinned bitwise
+to the numpy path by the tests.
 """
 
 from __future__ import annotations
@@ -168,7 +169,20 @@ def compact_frame(config: SurfelMapConfig, image: np.ndarray,
 def pack_frame(config: SurfelMapConfig, image: np.ndarray,
                depth: np.ndarray) -> np.ndarray:
     """One-buffer frame encoding: u8 intensity bytes followed by the f16
-    depth bytes, as a single (3*H*W,) u8 array."""
+    depth bytes, as a single (3*H*W,) u8 array.
+
+    f32 inputs take the native C++ encoder (clip/convert in one
+    memory-bound pass); other dtypes, or no native library, the numpy
+    path."""
+    image = np.asarray(image)
+    depth = np.asarray(depth)
+    if image.dtype == np.float32 and depth.dtype == np.float32:
+        from ..native import loader as native
+        if native.available():
+            if image.shape != (config.height, config.width):
+                raise ValueError(f"frame shape {image.shape} != config "
+                                 f"camera {(config.height, config.width)}")
+            return native.pack_frame(image, depth)
     ci, cd = compact_frame(config, image, depth)
     return np.concatenate([ci.reshape(-1), cd.reshape(-1).view(np.uint8)])
 
@@ -228,7 +242,18 @@ def pack_frame_with_aux(config: SurfelMapConfig, image: np.ndarray,
     n = config.height * config.width
     aux = np.asarray(aux, np.uint8)
     out = np.empty(3 * n + aux.shape[0], np.uint8)
-    out[:3 * n] = pack_frame(config, image, depth)
+    image = np.asarray(image)
+    depth = np.asarray(depth)
+    wrote = False
+    if image.dtype == np.float32 and depth.dtype == np.float32:
+        if image.shape != (config.height, config.width):
+            raise ValueError(f"frame shape {image.shape} != config camera "
+                             f"{(config.height, config.width)}")
+        from ..native import loader as native
+        # f32 frames encode straight into the output (no concatenate copy)
+        wrote = native.pack_frames_into([image], [depth], [out[:3 * n]])
+    if not wrote:
+        out[:3 * n] = pack_frame(config, image, depth)
     out[3 * n:] = aux
     return out
 

@@ -221,6 +221,11 @@ class DeviceResidentMapping(SurfelMapping):
         sel = (rows["update_times"] > 0) & ~self._is_active_row(rows)
         return {k: v[sel] for k, v in rows.items()}
 
+    def memory_usage_kb(self) -> float:
+        """The bank alone: this driver keeps no host pool."""
+        return sum(t.numel() * t.element_size()
+                   for _, t in self.bank.field_arrays()) / 1024.0
+
     def metrics(self) -> Dict[str, float]:
         self._flush_pending()
         out = super().metrics()

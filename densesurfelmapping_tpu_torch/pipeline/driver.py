@@ -389,6 +389,57 @@ class SurfelMapping:
         ina = self.inactive_surfels()
         return {k: np.concatenate([act[k], ina[k]]) for k in FIELDS}
 
+    def mesh_surfels(self) -> dict:
+        """Surfels eligible for mesh export: every inactive (attached)
+        surfel + stable active ones (save_mesh, `surfel_map.cpp:1219-1240`)."""
+        return self.map_surfels()
+
+    def save_cloud(self, path: str, binary: bool = True) -> int:
+        """PCD export of the stable map (`save_cloud`, surfel_map.cpp:1153)."""
+        from ..io import export
+        return export.save_cloud_pcd(path, self.map_surfels(), binary=binary)
+
+    def save_mesh(self, path: str, binary: bool = False) -> int:
+        """Hexagon-tessellated PLY export (`save_mesh`,
+        surfel_map.cpp:1219)."""
+        from ..io import export
+        return export.save_mesh_ply(path, self.mesh_surfels(), binary=binary)
+
+    def save_trajectory(self, path: str, fmt: str = "kitti") -> int:
+        """Loop-corrected keyframe trajectory ("kitti" 3x4 rows or "tum"
+        stamped quaternions) for external eval tooling — the file form of
+        the reference's continuously published /loop_path
+        (`ros_stereo.cc:214-257`)."""
+        from ..io import export
+        poses = [k.loop_pose for k in self.graph.keyframes]
+        stamps = [k.stamp for k in self.graph.keyframes]
+        if fmt == "kitti":
+            return export.save_trajectory_kitti(path, poses, stamps)
+        if fmt == "tum":
+            return export.save_trajectory_tum(path, poses, stamps)
+        raise ValueError(f"unknown trajectory format {fmt!r}")
+
+    def raw_pointcloud(self, depth: np.ndarray, pose: np.ndarray,
+                       image: Optional[np.ndarray] = None) -> dict:
+        """Back-projected world-frame cloud of one raw depth frame — the
+        reference's `raw_pointcloud` debug topic (`surfel_map.cpp:56-63`,
+        publish of the unfused input).  Host numpy; not on the hot path."""
+        cam = self.config.camera
+        depth = np.asarray(depth, np.float32)
+        h, w = depth.shape
+        vs, us = np.mgrid[0:h, 0:w]
+        valid = depth > 0.01
+        z = depth[valid]
+        x = (us[valid] - cam.cx) / cam.fx * z
+        y = (vs[valid] - cam.cy) / cam.fy * z
+        pts = np.stack([x, y, z], axis=1)
+        T = np.asarray(pose, np.float64)
+        world = pts @ T[:3, :3].T + T[:3, 3]
+        out = {"position": world.astype(np.float32)}
+        if image is not None:
+            out["color"] = np.asarray(image, np.float32)[valid]
+        return out
+
     def fusion_path(self) -> List[np.ndarray]:
         """Loop-corrected poses of every keyframe (`fusion_loop_path`)."""
         return [kf.loop_pose.copy() for kf in self.graph.keyframes]

@@ -248,3 +248,13 @@ def fuse_frame_stereo_onebuf(config: SurfelMapConfig, stereo_config,
     return fuse_frame_stereo_windowed_aux(config, stereo_config,
                                           filter_depth, bank, buf[:hw2],
                                           buf[hw2:])
+
+
+def segmentation_only(config: SurfelMapConfig, image: torch.Tensor,
+                      depth: torch.Tensor):
+    """Superpixel + plane-fit stage alone (for tests/debug visualisation,
+    the analogue of the reference's `debug_show`): padded (H, W) f32 image
+    and depth -> (seeds, assignment)."""
+    seeds, assignment = superpixel.run_slic(config, image, depth)
+    seeds, _ = normals.compute_seed_planes(config, seeds, assignment, depth)
+    return seeds, assignment

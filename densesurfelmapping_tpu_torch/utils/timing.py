@@ -11,8 +11,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import time
 from typing import Dict
+
+import torch
 
 
 class StageTimer:
@@ -39,3 +42,18 @@ class StageTimer:
     def report(self) -> str:
         return " | ".join(f"{k}: {v:.2f} ms"
                           for k, v in sorted(self.means_ms().items()))
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """torch.profiler scope over the host and the CUDA device; the Chrome
+    trace (`chrome://tracing`, Perfetto) is written into `log_dir`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -36,6 +36,10 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) >= 15, res["modules"]
+    for name in ("cli", "__main__", "eval.fidelity", "native.loader",
+                 "io.export", "io.png", "io.kitti", "io.tum", "io.posefeed",
+                 "io.stressfeed", "viz"):
+        assert f"densesurfelmapping_tpu_torch.{name}" in res["modules"], name
     assert not res["jax"]
     assert not res["reference"]
 
