@@ -1,6 +1,8 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only multi-kernels,multi   (a partial run: the
+        build and the named phases, no result line)
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. device  - a CUDA card is required; its name and power limit are printed
@@ -30,7 +32,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
                check against the rendered depth, the peak device memory; the
                fused-census, plain and materialized-volume (B4) matchers build
                the same map, and the materialized drive's peak memory
-  8. cli     - the port's CLI in this process (cli.main, --device cuda) on
+  8. multi-kernels - B1-B3 with the stream axis: over every run_slic sweep
+               of 4 distinct KITTI frames (and 3 frames of 120 x 56 at sp 6
+               and 16) one launch for all streams, each stream equal to the
+               single-frame kernel (torch.equal) and to the plain twin;
+               device us per launch at B = 1 and B = 4
+  9. multi   - MultiSessionMapping, 4 streams at the CLI's width (capacity
+               2^21) over 24 rounds under the sync check: each SLIC kernel
+               3x per round (not x B), no NaN, compaction, each session equal
+               to a solo DeviceResidentMapping (1e-5 m), a loop warp of
+               session 0 moving it alone, pipelined == eager; aggregate
+               frames/s at B = 1, 2, 4, device ms, ops and idle share per
+               round, peak device memory
+ 10. multi-stereo - 2 stereo streams x 8 rounds (--sgm): B5/B6 once per
+               stream and round, maps equal to solo stereo drives (1e-4 m)
+ 11. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
                (the seven outputs, MAE < 0.3 m, 3 SLIC launches of each
@@ -40,8 +56,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
                below pre-correction), kitti and replay over a generated
                KITTI-layout directory read by io/png.py with cv2 and PIL
                unimportable (banks equal to a directly fed
-               DeviceResidentMapping within 1e-5 m); writes under build/cli/
-  9. profile - device ms/frame of the stereo drive by fuse-step scope and
+               DeviceResidentMapping within 1e-5 m); multi --streams 4
+               --frames 20 and multi --streams 2 --frames 8 --stereo --sgm
+               (per-session outputs, launches per round), serve in a
+               subprocess fed by publish --save --shutdown over a unix
+               socket (a non-empty mesh), and an in-process MappingServer
+               over a CUDA DeviceResidentMapping equal to a direct feed
+               (1e-5 m); writes under build/cli/
+ 12. profile - device ms/frame of the stereo drive by fuse-step scope and
                of the SGM and SLIC kernels
 A kernel's time is its device time from the profiler's records of that
 kernel (`kernel_time`), printed beside the wrapper's host time per call; a
@@ -102,14 +124,16 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_time(fn, names, reps: int = 20, warmup: int = 3) -> dict:
+def kernel_time(fn, names, reps: int = 20, warmup: int = 3,
+                drop: int = 2) -> dict:
     """Device time of the kernels that one call of fn() launches, from the
     profiler's kernel records whose name contains one of `names` (a call's
     time is the sum of its records, one per name), over `reps` calls after
     `warmup`.  The profiler may drop a record at the edge of its window (one
-    of 20 or of 100 on the H100), so up to two calls may go uncounted; now
-    and then it drops more (11 of 100 once), and such a window is measured
-    again, up to three windows in all.
+    of 20 or of 100 on the H100), so up to `drop` calls may go uncounted;
+    now and then it drops more (11 of 100 once; 4 of 20 in three windows
+    in a row once), and such a window is measured again, up to three
+    windows in all.
 
     Returns per_us (each counted call's device us), us / us_min / us_max,
     all_us (device us per call of every operation fn() ran: fills, copies
@@ -139,9 +163,9 @@ def kernel_time(fn, names, reps: int = 20, warmup: int = 3) -> dict:
         recs = [sorted((e for e in dev if n in e.name),
                        key=lambda e: e.time_range.start) for n in names]
         calls = min(len(r) for r in recs)
-        if reps - 2 <= calls and max(len(r) for r in recs) <= reps:
+        if reps - drop <= calls and max(len(r) for r in recs) <= reps:
             break
-    require(reps - 2 <= calls and max(len(r) for r in recs) <= reps,
+    require(reps - drop <= calls and max(len(r) for r in recs) <= reps,
             f"profiler: {[len(r) for r in recs]} records of {names} for "
             f"{reps} calls, in three windows")
     per = [sum(r[i].time_range.elapsed_us() for r in recs)
@@ -329,33 +353,33 @@ def phase_kernels(config, device) -> dict:
             seeds.mean_intensity, seeds.mean_depth, seeds.stable)
     # the candidates the gate admits (at most 2 x 2 of the 3 x 3)
     n_cand = sum(int(m.sum()) for m in g["in_range"].values())
+    # reads image, inverse depth, assignment, four seed planes and the
+    # stable flags; writes the assignment and the bool claims; ~20 f32
+    # operations per admitted candidate
+    ba = (4 * hw * 4 + n_seeds * (4 * 4 + 1 + 1), n_cand * 20)
     out["slic_assign"] = timed(dict(
-        max_abs_err=float(d["assign_err"]),
-        # reads image, inverse depth, assignment, four seed planes and the
-        # stable flags; writes the assignment and the bool claims; ~20 f32
-        # operations per admitted candidate
-        **bound(4 * hw * 4 + n_seeds * (4 * 4 + 1 + 1), n_cand * 20)),
+        max_abs_err=float(d["assign_err"]), bound_args=ba, **bound(*ba)),
         kernel_time(lambda: K.slic_assign(*args), ("slic_assign_kernel",)),
         cuda_time_ms(lambda: S.assign_sweep(*args)))
     # B2: sums over the sweep's assignment
     asg1, _ = S.assign_sweep(*args)
     sargs = (config, image, depth, asg1)
+    # reads image, depth, assignment; writes six seed planes; six adds per
+    # pixel
+    ba = (3 * hw * 4 + 6 * n_seeds * 4, 6 * hw)
     out["slic_centroid"] = timed(dict(
-        max_abs_err=d["sums_err"],
-        # reads image, depth, assignment; writes six seed planes; six adds
-        # per pixel
-        **bound(3 * hw * 4 + 6 * n_seeds * 4, 6 * hw)),
+        max_abs_err=d["sums_err"], bound_args=ba, **bound(*ba)),
         kernel_time(lambda: K.slic_centroid(*sargs),
                     ("slic_centroid_kernel",)),
         cuda_time_ms(lambda: S.seed_sums(*sargs)))
     # B3: the five Huber steps from the sums' mean
     _, _, _, _, nd, sum_d = S.seed_sums(*sargs)
     hargs = (config, depth, asg1, sum_d / nd.clamp_min(1.0), nd <= 0)
+    # reads depth, assignment, the mean and the latch; writes the mean;
+    # five steps of ~8 operations per pixel
+    ba = (2 * hw * 4 + n_seeds * (4 + 1 + 4), 5 * 8 * hw)
     out["slic_huber"] = timed(dict(
-        max_abs_err=d["huber_err"],
-        # reads depth, assignment, the mean and the latch; writes the mean;
-        # five steps of ~8 operations per pixel
-        **bound(2 * hw * 4 + n_seeds * (4 + 1 + 4), 5 * 8 * hw)),
+        max_abs_err=d["huber_err"], bound_args=ba, **bound(*ba)),
         kernel_time(lambda: K.slic_huber(*hargs), ("slic_huber_kernel",)),
         cuda_time_ms(lambda: S.huber_mean_depth(*hargs)))
     for name, rec in out.items():
@@ -710,9 +734,10 @@ def same_bank(a: dict, b: dict) -> bool:
         np.array_equal(a[k], b[k]) for k in a)
 
 
-def phase_stereo(device) -> dict:
+def phase_stereo(device) -> tuple:
     """The stereo-resident drive: returns the SGM launch counts of the
-    fused drive and of the materialized-branch drive."""
+    fused drive and of the materialized-branch drive, and the rendered
+    pairs."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
     from densesurfelmapping_tpu_torch.io import synthetic
@@ -793,7 +818,7 @@ def phase_stereo(device) -> dict:
     say("stereo", f"4 pairs: fused census (B6+B5), plain twins and the "
         f"materialized volume (B4) build the same map "
         f"({int((rf['update_times'] > 0).sum())} live surfels)")
-    return dict(sgm_n, sgm_axis_scan=mat_n["sgm_axis_scan"])
+    return dict(sgm_n, sgm_axis_scan=mat_n["sgm_axis_scan"]), pairs
 
 
 CLI_DIR = "build/cli"
@@ -863,11 +888,13 @@ def counted(fn):
     return res, dict(K.LAUNCHES, **KS.LAUNCHES)
 
 
-def phase_cli(device) -> dict:
+def phase_cli(device, drive_frames) -> dict:
     """The port's CLI end to end on the card (cli.main in this process, the
     default --device cuda): the loop scene with --eval, --stereo --sgm with
-    --eval, the radius-15 stress run, and kitti + replay over a generated
-    KITTI-layout directory.  Returns the kernel launches of its runs."""
+    --eval, the radius-15 stress run, kitti + replay over a generated
+    KITTI-layout directory, multi (depth-fed and --stereo --sgm), serve in
+    a subprocess fed by publish, and an in-process MappingServer against a
+    direct feed of `drive_frames`.  Returns the kernel launches of its runs."""
     import importlib.util
     import os
     from densesurfelmapping_tpu_torch.config import kitti_config
@@ -1090,9 +1117,540 @@ def phase_cli(device) -> dict:
         f"equal to a DeviceResidentMapping fed the same arrays (max abs err "
         f"{err:.3g} / "
         f"{err_r:.3g}, bound {KITTI_BANK_TOL_M})")
+
+    # 6. multi: 4 streams, 20 rounds; per-session clouds and checkpoints
+    mp = f"{CLI_DIR}/multi"
+    (rc, out, _), n = counted(lambda: run_cli(
+        ["multi", "--streams", "4", "--frames", "20", "--out", mp]))
+    add(n)
+    require(rc == 0, f"multi: rc {rc}")
+    for k in range(4):
+        for suffix in (".pcd", ".ckpt.npz"):
+            path = f"{mp}_s{k}{suffix}"
+            require(os.path.exists(path) and os.path.getsize(path) > 0,
+                    f"multi: {path} missing or empty")
+        require(int(np.load(f"{mp}_s{k}.ckpt.npz")["frames_fused"]) == 20,
+                f"multi: session {k} did not fuse 20 frames")
+    require(all(n[k] == cfg.sp_iters * 20 for k in ("slic_assign",
+                                                    "slic_centroid",
+                                                    "slic_huber")),
+            f"multi: launches {n}, want {cfg.sp_iters * 20} of each SLIC "
+            f"kernel (one per sweep for the 4 streams)")
+    say("cli", f"multi --streams 4 --frames 20: rc 0, per-session clouds "
+        f"and checkpoints written; launches {n}")
+
+    # 7. the stereo fleet through the CLI
+    ms = f"{CLI_DIR}/multi_stereo"
+    (rc, out, _), n = counted(lambda: run_cli(
+        ["multi", "--streams", "2", "--frames", "8", "--stereo", "--sgm",
+         "--out", ms]))
+    add(n)
+    require(rc == 0, f"multi --stereo: rc {rc}")
+    require(n["sgm_census_x"] == n["sgm_census_y"] == 16
+            and n["slic_assign"] == cfg.sp_iters * 8,
+            f"multi --stereo --sgm: launches {n}, want B5/B6 16 (2 streams "
+            f"x 8 rounds) and {cfg.sp_iters * 8} of each SLIC kernel")
+    for k in range(2):
+        require(int(np.load(f"{ms}_s{k}.ckpt.npz")["bank_count"]) > 0,
+                f"multi --stereo: session {k}'s map is empty")
+    say("cli", f"multi --streams 2 --frames 8 --stereo --sgm: rc 0; "
+        f"launches {n}")
+
+    # 8. serve in a subprocess (the default --device cuda), fed by publish
+    # in this process over a unix socket
+    sock = f"{CLI_DIR}/s.sock"
+    if os.path.exists(sock):
+        os.unlink(sock)
+    mesh = f"{CLI_DIR}/published_mesh.ply"
+    served = f"{CLI_DIR}/served"
+    for path in (mesh, served + "_mesh.ply"):
+        if os.path.exists(path):
+            os.unlink(path)
+    server = subprocess.Popen(
+        [sys.executable, "-m", "densesurfelmapping_tpu_torch", "serve",
+         "--socket", sock, "--out", served],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(sock):
+            if server.poll() is not None or time.perf_counter() - t0 > 120:
+                server.kill()
+                raise AssertionError(f"serve did not start: "
+                                     f"{server.communicate()[0]}")
+            time.sleep(0.1)
+        rc, out, _ = run_cli(["publish", "--socket", sock, "--frames", "20",
+                              "--save", mesh, "--shutdown"])
+        s_out, _ = server.communicate(timeout=300)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    for ln in s_out.splitlines():
+        say("cli", "  serve| " + ln)
+    require(rc == 0 and server.returncode == 0,
+            f"publish rc {rc}, serve rc {server.returncode}")
+    require(os.path.getsize(mesh) > 0 and os.path.getsize(
+        served + "_mesh.ply") > 0, "serve/publish: a saved mesh is empty")
+    with open(mesh) as f:
+        n_vert = next(int(ln.split()[-1]) for ln in f
+                      if ln.startswith("element vertex"))
+    require(n_vert > 0, "serve/publish: the saved mesh has no vertex")
+    say("cli", f"serve (subprocess, --device cuda) fed by publish --frames "
+        f"20 over {sock}: both rc 0, the saved mesh has {n_vert} vertices, "
+        f"the shutdown autosave written")
+
+    # 9. in-process: a MappingServer over a CUDA DeviceResidentMapping
+    # gives the bank of a direct feed of the same messages
+    from densesurfelmapping_tpu_torch.io import bridge
+    import threading
+
+    def bridge_feed(target, i):
+        img, dep, pose = drive_frames[i]
+        target.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        target.feed_image(float(i), img)
+        target.feed_depth(float(i), dep)
+
+    direct = DeviceResidentMapping(cfg, device=device)
+    for i in range(N_KITTI_FRAMES):
+        bridge_feed(direct, i)
+    via = DeviceResidentMapping(cfg, device=device)
+    bsock = f"{CLI_DIR}/b.sock"
+    if os.path.exists(bsock):
+        os.unlink(bsock)
+    with bridge.MappingServer(via, bsock) as srv:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        with bridge.MappingClient(bsock) as client:
+            for i in range(N_KITTI_FRAMES):
+                img, dep, pose = drive_frames[i]
+                client.publish_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+                client.publish_image(float(i), img)
+                client.publish_depth(float(i), dep)
+            m = client.metrics()["metrics"]
+    require(m["frames_fused"] == N_KITTI_FRAMES, f"bridge: fused {m}")
+    a, b = bank_to_numpy(direct.bank), bank_to_numpy(via.bank)
+    require(len(a["color"]) == len(b["color"]) > 0 and np.array_equal(
+        a["update_times"], b["update_times"]), "bridge: banks differ")
+    berr = max(float(np.abs(a[k] - b[k]).max()) for k in
+               ("position", "normal", "color", "size", "weight"))
+    require(berr <= KITTI_BANK_TOL_M, f"bridge: bank off by {berr}")
+    say("cli", f"MappingServer over a CUDA DeviceResidentMapping, "
+        f"{N_KITTI_FRAMES} KITTI frames over a unix socket: the bank equals "
+        f"a direct feed's (max abs err {berr:.3g}, bound {KITTI_BANK_TOL_M})")
+
     say("cli", f"phase wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches in its runs {total}")
     return total
+
+
+N_STREAMS = 4           # the CLI's `multi --streams` default
+N_ROUNDS = 24           # rounds of the fleet drive: 27 renders, not 96
+N_STEREO_ROUNDS = 8
+FLEET_TOL_M = 1e-5      # the JAX fleet's own tolerance against solo drivers
+STEREO_FLEET_TOL_M = 1e-4
+
+
+def batch_inputs(config, device, n: int):
+    """n distinct frames of the synthetic scene (forward_trajectory, 0.4 m
+    apart) stacked on a leading stream axis, with each frame's seeds and
+    the initial assignment: run_slic's start for every stream."""
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
+    frames = [scene_frame(config, p, device)
+              for p in synthetic.forward_trajectory(n, step=0.4)]
+    image = torch.stack([f[0] for f in frames])
+    depth = torch.stack([f[1] for f in frames])
+    inv_depth = torch.where(depth > 0.01, 1.0 / depth.clamp_min(1e-20), 0.0)
+    seeds = [S.initialize_seeds(config, i, d) for i, d in frames]
+    g = S.device_geometry(config, device)
+    asg = torch.where(g["pixel_valid"], 0, -1).to(torch.int32).expand(
+        n, -1, -1).contiguous()
+    return image, depth, inv_depth, seeds, asg
+
+
+def stacked(seeds, name):
+    return torch.stack([getattr(s, name) for s in seeds])
+
+
+def one_launch(name, fn):
+    """fn() with kernel `name` launched exactly once for all streams."""
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+    n0 = K.LAUNCHES[name]
+    out = fn()
+    require(K.LAUNCHES[name] - n0 == 1, f"{name}: a batched call launched "
+            f"{K.LAUNCHES[name] - n0} times")
+    return out
+
+
+def check_multi_slic(config, device, n: int) -> dict:
+    """Over every sweep of the plain run_slic on n distinct frames: each
+    batched B1/B2/B3 call launches once, each stream's output equals the
+    single-frame kernel on that stream's frame (torch.equal), and holds
+    against the plain twin under check_slic's contracts (B1 exact, B2
+    rtol 1e-5 / atol 1e-3, B3 1e-4 m).  Returns the largest errors."""
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+    image, depth, inv_depth, seeds, asg = batch_inputs(config, device, n)
+    tag = (f"{n} streams of {config.height} x {config.width}, sp "
+           f"{config.sp_size}, {config.sp_iters} sweeps")
+    d = dict(sums_err=0.0, huber_err=0.0)
+    for _ in range(config.sp_iters):
+        names = ("x", "y", "mean_intensity", "mean_depth", "stable")
+        bargs = (image, inv_depth, asg) + tuple(stacked(seeds, k)
+                                                for k in names)
+        ka, kc = one_launch("slic_assign",
+                            lambda: K.slic_assign(config, *bargs))
+        sums, plain_sums = [], []
+        for k in range(n):
+            args = tuple(a[k] for a in bargs)
+            sa, sc = K.slic_assign(config, *args)
+            pa, pc = S.assign_sweep(config, *args)
+            require(torch.equal(ka[k], sa) and torch.equal(kc[k], sc),
+                    f"slic_assign ({tag}): stream {k} differs from the "
+                    f"single-frame kernel")
+            require(torch.equal(ka[k], pa) and torch.equal(kc[k], pc),
+                    f"slic_assign ({tag}): stream {k} differs from the "
+                    f"plain twin")
+        ks = one_launch("slic_centroid",
+                        lambda: K.slic_centroid(config, image, depth, ka))
+        for k in range(n):
+            one = K.slic_centroid(config, image[k], depth[k], ka[k])
+            ps = S.seed_sums(config, image[k], depth[k], ka[k])
+            for a, b, c in zip(ks, one, ps):
+                require(torch.equal(a[k], b), f"slic_centroid ({tag}): "
+                        f"stream {k} differs from the single-frame kernel")
+                d["sums_err"] = max(d["sums_err"],
+                                    float((a[k] - c).abs().max()))
+                require(bool(torch.allclose(a[k], c, rtol=1e-5, atol=1e-3)),
+                        f"slic_centroid ({tag}): stream {k} off the twin")
+            plain_sums.append(ps)
+            sums.append(ps[5] / ps[4].clamp_min(1.0))
+        mean0 = torch.stack(sums)
+        conv = torch.stack([ps[4] <= 0 for ps in plain_sums])
+        km = one_launch("slic_huber",
+                        lambda: K.slic_huber(config, depth, ka, mean0, conv))
+        for k in range(n):
+            hargs = (config, depth[k], ka[k], mean0[k], conv[k])
+            require(torch.equal(km[k], K.slic_huber(*hargs)),
+                    f"slic_huber ({tag}): stream {k} differs from the "
+                    f"single-frame kernel")
+            d["huber_err"] = max(d["huber_err"], float(
+                (km[k] - S.huber_mean_depth(*hargs)).abs().max()))
+        require(d["huber_err"] <= 1e-4, f"slic_huber ({tag}): off the twin "
+                f"by {d['huber_err']} m")
+        asg = ka
+        seeds = [S.update_seeds(config, s.replace(stable=s.stable & ~kc[k]),
+                                asg[k], image[k], depth[k])
+                 for k, s in enumerate(seeds)]
+    say("multi-kernels", f"{tag}: one launch of each kernel per sweep for "
+        f"all streams; every stream equals the single-frame kernel "
+        f"(torch.equal) and its twin (B1 exact, B2 max abs err "
+        f"{d['sums_err']:.3g}, B3 {d['huber_err']:.3g} m)")
+    return d
+
+
+def phase_multi_kernels(device, records: dict) -> dict:
+    """B1-B3 with the stream axis: the checks of check_multi_slic at KITTI
+    (N_STREAMS frames) and at sp 6 and 16 on the 120 x 56 frame, then
+    device us per launch at B = 1 and B = N_STREAMS (kernel_time) beside
+    the bound at B streams (B x one frame's bytes and operations).
+    Returns {kernel: batched record}."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
+    cfg = kitti_config()
+    d = check_multi_slic(cfg, device, N_STREAMS)
+    for sp in (6, 16):
+        check_multi_slic(slic_config(sp), device, 3)
+    image, depth, inv_depth, seeds, asg = batch_inputs(cfg, device,
+                                                       N_STREAMS)
+    names = ("x", "y", "mean_intensity", "mean_depth", "stable")
+    bargs = (image, inv_depth, asg) + tuple(stacked(seeds, k) for k in names)
+    asg1, _ = K.slic_assign(cfg, *bargs)
+    sums = K.slic_centroid(cfg, image, depth, asg1)
+    hargs = (depth, asg1, sums[5] / sums[4].clamp_min(1.0), sums[4] <= 0)
+    calls = {
+        "slic_assign": lambda b: K.slic_assign(cfg, *(a[:b] for a in bargs)),
+        "slic_centroid": lambda b: K.slic_centroid(cfg, image[:b],
+                                                   depth[:b], asg1[:b]),
+        "slic_huber": lambda b: K.slic_huber(cfg, *(a[:b] for a in hargs)),
+    }
+    errs = dict(slic_assign=0.0, slic_centroid=d["sums_err"],
+                slic_huber=d["huber_err"])
+    out = {}
+    for name, call in calls.items():
+        # 50 calls, up to 10 uncounted: the profiler dropped 4 of 20
+        # records of B2 at B = 1 in three windows in a row once (H100)
+        t1 = kernel_time(lambda: call(1), (name + "_kernel",), reps=50,
+                         drop=10)
+        tb = kernel_time(lambda: call(N_STREAMS), (name + "_kernel",),
+                         reps=50, drop=10)
+        rec = records[name]
+        b = bound(*(N_STREAMS * x for x in rec["bound_args"]))
+        out[name] = dict(streams=N_STREAMS, us_1=t1["us"],
+                         us_n=tb["us"], us_n_min=tb["us_min"],
+                         us_n_max=tb["us_max"], ops_n=tb["ops"],
+                         host_us_n=tb["host_us"], max_abs_err=errs[name],
+                         **b)
+        say("multi-kernels", f"{name}: device {t1['us']:.2f} us/launch at "
+            f"B = 1, {tb['us']:.2f} us/launch at B = {N_STREAMS} (min "
+            f"{tb['us_min']:.2f}, max {tb['us_max']:.2f}; "
+            f"{tb['us'] / N_STREAMS:.2f} us a stream), {tb['ops']:.2f} device "
+            f"ops a call, wrapper host {tb['host_us']:.1f} us; bound at B = "
+            f"{N_STREAMS} {1e3 * b['bound_ms']:.2f} us ({b['bound_by']})")
+    return out
+
+
+def fleet_rows(multi, k: int) -> dict:
+    """Every allocated row of session k."""
+    return multi.session_surfels(k, min_updates=0)
+
+
+def drive_fleet(config, frames, device, n_streams: int, rounds: int,
+                pipelined: bool = False, sync_checked: bool = False):
+    """MultiSessionMapping over `rounds` rounds: stream k fuses frames k,
+    k + 1, ... (keyframe every 2nd round); returns (fleet, aggregate
+    frames/s to a device synchronize)."""
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+    multi = MultiSessionMapping(config, n_streams, pipelined=pipelined,
+                                device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync_checked:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(rounds):
+            for k in range(n_streams):
+                img, dep, pose = frames[k + i]
+                multi.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
+                multi.feed_image(k, float(i), img)
+                multi.feed_depth(k, float(i), dep)
+            multi.step()
+        multi.flush_rounds()
+    finally:
+        if sync_checked:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fps = n_streams * rounds / (time.perf_counter() - t0)
+    multi.close()
+    return multi, fps
+
+
+def same_rows_within(a: dict, b: dict, tol: float, what: str) -> float:
+    """Equal live-surfel counts and column-sorted positions within tol (the
+    comparison of tests/test_multi_session.py); returns the max error."""
+    la, lb = a["update_times"] > 0, b["update_times"] > 0
+    require(la.sum() == lb.sum() > 0, f"{what}: {int(la.sum())} live "
+            f"surfels against {int(lb.sum())}")
+    err = float(np.abs(np.sort(a["position"][la], axis=0)
+                       - np.sort(b["position"][lb], axis=0)).max())
+    require(err <= tol, f"{what}: positions off by {err} m (bound {tol})")
+    return err
+
+
+def phase_multi(device, frames, smi: str) -> dict:
+    """The multi-session fleet at the CLI's width: MultiSessionMapping(
+    kitti_config(surfel_capacity=1<<21, compact_interval=16), 4 streams,
+    device="cuda"); stream k fuses frames k ... k + 23 of the drive's
+    forward_trajectory renders.  Checks launches, NaN, compaction, each
+    session against a solo DeviceResidentMapping, a loop warp on session 0
+    alone and pipelined == eager; measures the aggregate frames/s at
+    B = 1, 2, 4, device ops, ms and idle share per round and the peak
+    device memory.  Returns the SLIC launches of the checked drive."""
+    from torch.profiler import ProfilerActivity, profile
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+
+    cfg = kitti_config(surfel_capacity=1 << 21, compact_interval=16)
+    B = N_STREAMS
+    require(len(frames) >= B - 1 + N_ROUNDS, "too few rendered frames")
+    for b in (1, 2, B):                  # warm-up: allocator, first calls
+        drive_fleet(cfg, frames, device, b, 2)
+    torch.cuda.reset_peak_memory_stats()
+    (multi, fps4), n = counted(lambda: drive_fleet(
+        cfg, frames, device, B, N_ROUNDS, sync_checked=True))
+    peak = torch.cuda.max_memory_allocated()
+    say("multi", f"{B} streams x {N_ROUNDS} rounds: kernel launches {n}; "
+        f"steady feed raised no host-device sync; peak device memory "
+        f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; banks "
+        f"{B} x 2^21 rows)")
+    want = cfg.sp_iters * N_ROUNDS
+    require(all(n[k] == want for k in ("slic_assign", "slic_centroid",
+                                       "slic_huber"))
+            and n["sgm_census_x"] == n["sgm_census_y"] == 0,
+            f"fleet: SLIC kernels not launched {cfg.sp_iters}x per round "
+            f"(want {want} each, not x {B}): {n}")
+    require(multi.compactions > 0, "fleet: compaction never ran")
+    rows = [fleet_rows(multi, k) for k in range(B)]
+    for k, r in enumerate(rows):
+        for f in ("position", "normal", "size", "weight"):
+            require(bool(np.isfinite(r[f]).all()),
+                    f"fleet session {k}: NaN/Inf in bank.{f}")
+    errs = []
+    for k in range(B):
+        solo, _ = drive(cfg, frames[k:k + N_ROUNDS], device,
+                        pipelined=False, sync_checked=False)
+        errs.append(same_rows_within(rows[k], bank_to_numpy(solo.bank),
+                                     FLEET_TOL_M, f"fleet session {k} vs "
+                                     f"a solo DeviceResidentMapping"))
+        del solo
+    say("multi", f"each session equals a solo DeviceResidentMapping fed "
+        f"the same {N_ROUNDS} frames: live surfels "
+        f"{[int((r['update_times'] > 0).sum()) for r in rows]}, max abs "
+        f"position err {max(errs):.3g} m (bound {FLEET_TOL_M}); "
+        f"{multi.compactions} compactions")
+
+    # a loop correction of session 0 moves session 0 alone
+    s0 = multi.sessions[0]
+    shift = np.eye(4)
+    shift[:3, 3] = (0.25, -0.5, 1.0)
+    multi.feed_pose(0, 1e6, shift @ s0.graph.keyframes[-1].cam_pose,
+                    loop_path=[shift @ kf.cam_pose
+                               for kf in s0.graph.keyframes])
+    after = [fleet_rows(multi, k) for k in range(B)]
+    live = rows[0]["update_times"] > 0
+    werr = float(np.abs(after[0]["position"][live]
+                        - rows[0]["position"][live] - shift[:3, 3]).max())
+    require(werr < WARP_TOL_M, f"fleet loop warp: session 0 off by {werr}")
+    for k in range(1, B):
+        require(same_bank(after[k], rows[k]),
+                f"fleet loop warp moved session {k}")
+    say("multi", f"loop warp of session 0: every live surfel moved by the "
+        f"shift within {werr:.2e} m (bound {WARP_TOL_M}); sessions 1-{B - 1} "
+        f"unchanged")
+
+    piped, fps_p = drive_fleet(cfg, frames, device, B, N_ROUNDS,
+                               pipelined=True)
+    for k in range(B):
+        pr = fleet_rows(piped, k)
+        require(len(pr["color"]) == len(rows[k]["color"]) and all(
+            np.allclose(pr[f], rows[k][f], atol=1e-5) for f in pr),
+            f"pipelined fleet: session {k} differs from the eager fleet")
+    del piped, multi
+
+    rates = {}
+    for b in (1, 2, B):
+        fps = sorted(drive_fleet(cfg, frames, device, b, N_ROUNDS)[1]
+                     for _ in range(3))
+        rates[b] = fps
+        runs = ", ".join(f"{x:.2f}" for x in fps)
+        say("multi", f"B = {b}: aggregate {fps[1]:.2f} frames/s (median of "
+            f"3 drives of {N_ROUNDS} rounds: {runs}; {fps[1] / b:.2f} per "
+            f"stream)")
+    say("multi", f"pipelined B = {B}: {fps_p:.2f} frames/s, same maps as "
+        f"eager; sync-checked eager drive {fps4:.2f} ({smi})")
+
+    # device work per round at B streams, under the profiler
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+    prof_fleet = MultiSessionMapping(cfg, B, device=device)
+    n_prof = 8
+
+    def round_(i):
+        for k in range(B):
+            img, dep, pose = frames[k + i]
+            prof_fleet.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
+            prof_fleet.feed_image(k, float(i), img)
+            prof_fleet.feed_depth(k, float(i), dep)
+        prof_fleet.step()
+
+    for i in range(2):
+        round_(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 2 + n_prof):
+            round_(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, busy_us = device_activity(prof.events())
+    kern = {p: sum(e.time_range.elapsed_us() for e in dev if p in e.name)
+            / n_prof / 1e3 for p in ("slic_assign_kernel",
+                                     "slic_centroid_kernel",
+                                     "slic_huber_kernel")}
+    say("multi", f"B = {B}, {n_prof} rounds under the profiler: wall "
+        f"{1e3 * wall / n_prof:.2f} ms/round, device busy "
+        f"{busy_us / n_prof / 1e3:.2f} ms/round, idle share "
+        f"{1 - busy_us / 1e6 / wall:.3f}, {len(dev) / n_prof:.0f} device "
+        f"operations/round; SLIC kernels ms/round "
+        + ", ".join(f"{k} {v:.4f}" for k, v in kern.items()))
+    return dict(launches=n, rates=rates)
+
+
+def phase_multi_stereo(device, pairs) -> dict:
+    """The stereo fleet: 2 streams x N_STEREO_ROUNDS rounds of pairs with
+    the CLI's --sgm matcher under the sync check; B5/B6 once per stream and
+    round, the SLIC kernels once per sweep and round, each session's map
+    equal to a solo stereo DeviceResidentMapping within 1e-4 m."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    B, R = 2, N_STEREO_ROUNDS
+
+    def run(sync_checked, rounds):
+        multi = MultiSessionMapping(cfg, B, device=device)
+        multi.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
+                            stereo_config=sgm_config())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync_checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(rounds):
+                for k in range(B):
+                    li, ri, _, pose = pairs[k + i]
+                    multi.feed_pose(k, float(i), pose,
+                                    is_keyframe=(i % 2 == 0))
+                    multi.feed_stereo(k, float(i), li, ri)
+                multi.step()
+        finally:
+            if sync_checked:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return multi, B * rounds / (time.perf_counter() - t0)
+
+    run(False, 1)
+    (multi, fps), n = counted(lambda: run(True, R))
+    require(n["sgm_census_x"] == n["sgm_census_y"] == B * R
+            and n["sgm_axis_scan"] == 0,
+            f"stereo fleet: B5/B6 not once per stream and round: {n}")
+    require(all(n[k] == cfg.sp_iters * R for k in ("slic_assign",
+                                                   "slic_centroid",
+                                                   "slic_huber")),
+            f"stereo fleet: SLIC kernels not {cfg.sp_iters}x per round: {n}")
+    errs = []
+    for k in range(B):
+        solo, _ = drive_stereo(cfg, pairs[k:k + R], device, sgm_config(),
+                               False)
+        errs.append(same_rows_within(
+            fleet_rows(multi, k), bank_to_numpy(solo.bank),
+            STEREO_FLEET_TOL_M, f"stereo fleet session {k} vs a solo "
+            f"stereo DeviceResidentMapping"))
+    say("multi-stereo", f"{B} streams x {R} rounds: {fps:.2f} frames/s "
+        f"aggregate (to a device synchronize); launches {n}; steady feed "
+        f"raised no host-device sync; each session equals a solo stereo "
+        f"drive within {max(errs):.3g} m (bound {STEREO_FLEET_TOL_M})")
+    return n
+
+
+def device_activity(events) -> tuple:
+    """The profiler's device records (kernels, copies and sets, not the
+    device-side spans of the record_function scopes), in time order, and
+    the us during which the device ran any of them (the union of their
+    intervals)."""
+    from torch.autograd import DeviceType
+    device = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for e in device:
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy_us += max(0.0, hi - lo)
+        end = max(end, hi)
+    return device, busy_us
 
 
 def phase_profile(device) -> None:
@@ -1129,16 +1687,7 @@ def phase_profile(device) -> None:
 
     from torch.autograd import DeviceType
     events = prof.events()
-    # device activity: kernels, copies and sets (not the device-side spans
-    # of the record_function scopes)
-    device = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                     and not e.is_user_annotation),
-                    key=lambda e: e.time_range.start)
-    busy_us, end = 0.0, float("-inf")
-    for e in device:                      # union of the device intervals
-        lo, hi = max(e.time_range.start, end), e.time_range.end
-        busy_us += max(0.0, hi - lo)
-        end = max(end, hi)
+    device, busy_us = device_activity(events)
     say("profile", f"{n} stereo frames under the profiler: wall "
         f"{1e3 * wall / n:.2f} ms/frame, device busy {busy_us / n / 1e3:.2f} "
         f"ms/frame, idle share {1 - busy_us / 1e6 / wall:.3f}, "
@@ -1168,59 +1717,122 @@ def phase_profile(device) -> None:
             f"{c / n:.1f}/frame")
 
 
+PHASES = ("kernels", "sgm", "drive", "stereo", "multi-kernels", "multi",
+          "multi-stereo", "cli", "profile")
+
+
 def main() -> None:
+    """Every phase, in order; `--only a,b` runs the build and the named
+    phases alone (a partial run: it prints no result line)."""
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = set(sys.argv[2].split(","))
+        require(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
+    elif len(sys.argv) > 1:
+        raise SystemExit(f"usage: {sys.argv[0]} [--only "
+                         f"{','.join(PHASES)}]")
+
+    t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def run(name):
+        return only is None or name in only
+
+    def lap(name):
+        now = time.perf_counter()
+        say("time", f"{name}: {now - t_mark[0]:.1f} s (script "
+            f"{now - t_start:.1f} s)")
+        t_mark[0] = now
+
     smi = phase_device()
     device = torch.device("cuda")
     phase_build()
+    lap("build")
 
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
     from densesurfelmapping_tpu_torch.io import synthetic
-    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
 
-    records = phase_kernels(kitti_config(), device)
-    records.update(phase_sgm_kernels(device))
+    records = {}
+    if run("kernels") or run("multi-kernels"):
+        records.update(phase_kernels(kitti_config(), device))
+    lap("kernels")
+    if run("sgm"):
+        records.update(phase_sgm_kernels(device))
+        lap("sgm")
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     t0 = time.perf_counter()
     frames = make_frames(cfg, N_FRAMES)
     say("drive", f"rendered {len(frames)} frames {cfg.height}x{cfg.width} "
         f"in {time.perf_counter() - t0:.1f} s")
-    drive(cfg, frames[:4], device, pipelined=False, sync_checked=False)
+    launches = dict.fromkeys(("slic_assign", "slic_centroid", "slic_huber",
+                              "sgm_axis_scan", "sgm_census_y",
+                              "sgm_census_x"), 0)
 
-    K.reset_launch_counts()
-    drv, fps = drive(cfg, frames, device, pipelined=False, sync_checked=True)
-    launches = dict(K.LAUNCHES)
-    say("drive", f"kernel launches in the drive: {launches}")
-    require(all(v == cfg.sp_iters * drv.frames_fused == cfg.sp_iters
-                * N_FRAMES for v in launches.values()),
-            f"the SLIC kernels were not launched {cfg.sp_iters}x per frame "
-            f"on the main path")
-    rows_a = bank_to_numpy(drv.bank)
-    stats = check_map(rows_a, drv, synthetic.default_scene().ground_y)
-    say("drive", f"map: {stats['live']} live surfels, {stats['ground']} "
-        f"stable ground surfels, mean |y - ground| "
-        f"{stats['ground_err_m']:.3e} m (bound {GROUND_GATE_M}), "
-        f"{stats['compactions']} compactions; steady feed raised no "
-        f"host-device sync")
-    say("drive", f"loop warp: every live surfel moved by the shift within "
-        f"{check_warp(drv):.2e} m (bound {WARP_TOL_M})")
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
 
-    drv_p, fps_p = drive(cfg, frames, device, pipelined=True,
-                         sync_checked=False)
-    rows_p = bank_to_numpy(drv_p.bank)
-    require(len(rows_p["color"]) == len(rows_a["color"]),
-            "pipelined drive: bank count differs")
-    for k, v in rows_a.items():
-        require(bool(np.allclose(rows_p[k], v, atol=1e-5)),
-                f"pipelined drive: bank.{k} differs")
-    say("rate", f"{N_FRAMES} frames: {fps:.2f} frames/s unpipelined, "
-        f"{fps_p:.2f} frames/s pipelined, same map ({smi})")
+    if run("drive"):
+        drive(cfg, frames[:4], device, pipelined=False, sync_checked=False)
+        (drv, fps), n = counted(lambda: drive(cfg, frames, device,
+                                              pipelined=False,
+                                              sync_checked=True))
+        add(n)
+        say("drive", f"kernel launches in the drive: {n}")
+        require(all(n[k] == cfg.sp_iters * drv.frames_fused == cfg.sp_iters
+                    * N_FRAMES for k in ("slic_assign", "slic_centroid",
+                                         "slic_huber")),
+                f"the SLIC kernels were not launched {cfg.sp_iters}x per "
+                f"frame on the main path")
+        rows_a = bank_to_numpy(drv.bank)
+        stats = check_map(rows_a, drv, synthetic.default_scene().ground_y)
+        say("drive", f"map: {stats['live']} live surfels, {stats['ground']} "
+            f"stable ground surfels, mean |y - ground| "
+            f"{stats['ground_err_m']:.3e} m (bound {GROUND_GATE_M}), "
+            f"{stats['compactions']} compactions; steady feed raised no "
+            f"host-device sync")
+        say("drive", f"loop warp: every live surfel moved by the shift "
+            f"within {check_warp(drv):.2e} m (bound {WARP_TOL_M})")
 
-    launches.update(phase_stereo(device))
-    for name, n in phase_cli(device).items():
-        launches[name] += n
-    phase_profile(device)
+        drv_p, fps_p = drive(cfg, frames, device, pipelined=True,
+                             sync_checked=False)
+        rows_p = bank_to_numpy(drv_p.bank)
+        require(len(rows_p["color"]) == len(rows_a["color"]),
+                "pipelined drive: bank count differs")
+        for k, v in rows_a.items():
+            require(bool(np.allclose(rows_p[k], v, atol=1e-5)),
+                    f"pipelined drive: bank.{k} differs")
+        say("rate", f"{N_FRAMES} frames: {fps:.2f} frames/s unpipelined, "
+            f"{fps_p:.2f} frames/s pipelined, same map ({smi})")
+        del drv, drv_p
+    lap("drive (renders included)")
+
+    pairs = None
+    if run("stereo") or run("multi-stereo"):
+        n, pairs = phase_stereo(device)
+        add(n)
+        lap("stereo")
+    batched = {}
+    if run("multi-kernels"):
+        batched = phase_multi_kernels(device, records)
+        lap("multi-kernels")
+    if run("multi"):
+        add(phase_multi(device, frames, smi)["launches"])
+        lap("multi")
+    if run("multi-stereo"):
+        add(phase_multi_stereo(device, pairs))
+        lap("multi-stereo")
+    if run("cli"):
+        add(phase_cli(device, frames))
+        lap("cli")
+    if run("profile"):
+        phase_profile(device)
+        lap("profile")
+    if only is not None:
+        say("done", f"partial run of {sorted(only)}: launches {launches}")
+        return
 
     kernels = []
     for name, src, line in (
@@ -1228,14 +1840,23 @@ def main() -> None:
             ("slic_huber", "slic", 397), ("sgm_axis_scan", "sgm", 181),
             ("sgm_census_y", "sgm", 382), ("sgm_census_x", "sgm", 497)):
         rec = records[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source=f"densesurfelmapping_tpu_torch/csrc/{src}.cu",
             replaces=f"densesurfelmapping_tpu/ops/pallas/{src}.py:{line}",
             launches=launches[name], max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=None))
+            library_ms=None)
+        if name in batched:
+            # the stream axis: one launch for the fleet's streams
+            b = batched[name]
+            entry["batched"] = dict(
+                route="grid z = stream", streams=b["streams"],
+                ms_1=b["us_1"] / 1e3, ms=b["us_n"] / 1e3,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=b["max_abs_err"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,16 @@ entry node with its param block (`surfel_fusion/launch/kitti_orb.launch:5-22`,
         --seq 0 --poses /data/kitti/poses/00.txt --out kitti00 \
         --max-frames 500
     python -m densesurfelmapping_tpu_torch replay --feed poses.npz --root ...
+    python -m densesurfelmapping_tpu_torch multi --streams 4 --frames 50
+    python -m densesurfelmapping_tpu_torch serve --socket build/cli/s.sock &
+    python -m densesurfelmapping_tpu_torch publish --socket build/cli/s.sock \
+        --frames 120 --save map_mesh.ply --shutdown
 
 The PyTorch port of the JAX package's CLI, with its subcommands synthetic,
-kitti, stress, tum and replay (the serving ones, multi / diagnose / serve /
-publish, are not ported yet).  Mapping runs on `--device` (default cuda,
-which raises on a machine without a CUDA card; --device cpu runs the plain
-PyTorch paths).
+kitti, stress, tum, replay, multi (B sessions in one batched pass per
+round), serve and publish (the socket bridge, io/bridge.py); `diagnose` is
+not ported yet.  Mapping runs on `--device` (default cuda, which raises on a
+machine without a CUDA card; --device cpu runs the plain PyTorch paths).
 
 Outputs per run (all optional, gated on --out): <out>.pcd stable cloud,
 <out>_mesh.ply hexagon mesh, <out>_cameras.ply frustum/pose-graph line set,
@@ -32,6 +36,14 @@ import time
 
 import numpy as np
 import torch
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return device
 
 
 def _build_mapping(args):
@@ -58,10 +70,7 @@ def _build_mapping(args):
     if cam_overrides:
         cam = dataclasses.replace(cfg.camera, **cam_overrides)
         cfg = dataclasses.replace(cfg, camera=cam)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
+    device = _device(args)
     if getattr(args, "host_pool", False):
         return SurfelMapping(cfg, kitti_alignment=args.kitti_alignment,
                              device=device), cfg
@@ -454,6 +463,140 @@ def cmd_replay(args):
     return 0
 
 
+def cmd_multi(args):
+    """Multi-session serving demo: B synthetic streams, one batched pass of
+    device work per round (pipeline/multi_session.MultiSessionMapping)."""
+    from .io import synthetic
+    from .pipeline.multi_session import MultiSessionMapping
+    from . import kitti_config
+    from .config import SurfelMapConfig
+
+    if args.camera_json:
+        with open(args.camera_json) as f:
+            cfg = SurfelMapConfig.from_json(f.read())
+    else:
+        cfg = kitti_config(surfel_capacity=1 << args.capacity_log2)
+    B = args.streams
+    multi = MultiSessionMapping(cfg, n_streams=B,
+                                pipelined=getattr(args, "pipelined", False),
+                                device=_device(args))
+    if getattr(args, "stereo", False):
+        multi.enable_stereo(bf=cfg.camera.fx * 0.54,
+                            stereo_config=_stereo_config(args))
+    scene = synthetic.default_scene()
+    t0 = time.perf_counter()
+    for i in range(args.frames):
+        for k in range(B):
+            pose = np.eye(4)
+            pose[0, 3] = 0.4 * i + 0.2 * k   # offset trajectories
+            pose[2, 3] = 0.1 * k
+            img, dep = scene.render(cfg, pose)
+            multi.feed_pose(k, float(i), pose,
+                            is_keyframe=(i % args.kf_every == 0))
+            if getattr(args, "stereo", False):
+                rp = pose.copy()
+                rp[:3, 3] += rp[:3, 0] * 0.54
+                rimg, _ = scene.render(cfg, rp)
+                multi.feed_stereo(k, float(i), img, rimg)
+            else:
+                multi.feed_image(k, float(i), img)
+                multi.feed_depth(k, float(i), dep)
+        multi.step()
+    metrics = multi.session_metrics()      # completes every round
+    dt = time.perf_counter() - t0
+    total = args.frames * B
+    print(f"{total} frames across {B} sessions in {dt:.2f}s "
+          f"({total / dt:.1f} frames/s aggregate incl. host render)")
+    for k, m in enumerate(metrics):
+        print(f"session {k}: {m['surfel_count']} surfels, "
+              f"saturation {m['saturation']:.1%}, "
+              f"dropped {m['surfels_dropped']}")
+        if args.out:
+            multi.save_cloud(k, f"{args.out}_s{k}.pcd")
+            multi.save_checkpoint(k, f"{args.out}_s{k}.ckpt.npz")
+    if args.out:
+        print(f"saved per-session clouds + checkpoints -> {args.out}_s*")
+    return 0
+
+
+def cmd_serve(args):
+    """Live mapping server: the reference's `ros_node` as a socket service
+    (`ros_node.cpp:13-53`: subscribe, queue-decouple, fuse, shutdown-save).
+    Clients stream images/depths/stereo pairs/pose messages over the bridge
+    protocol (io/bridge.py) and can request saves/metrics mid-run."""
+    from .io.bridge import MappingServer
+
+    mapping, cfg = _build_mapping(args)
+    if args.stereo:
+        mapping.enable_stereo(bf=cfg.camera.fx * args.baseline,
+                              stereo_config=_stereo_config(args))
+    address = args.socket if args.socket else (args.host, args.port)
+    autosave = (args.out + "_mesh.ply") if args.out else None
+    with MappingServer(mapping, address, queue_depth=args.queue_depth,
+                       autosave=autosave) as server:
+        bound = server.address
+        where = bound if isinstance(bound, str) else \
+            "%s:%d" % tuple(bound[:2])
+        print(f"serving on {where}", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            print("interrupted - draining + saving")
+    print(f"bridge stats: {server.stats}")
+    if args.out:
+        _finish(mapping, cfg, args, None)
+    return 0
+
+
+def cmd_publish(args):
+    """Demo client: streams the synthetic scene to a `serve` process, the
+    two-process live topology of the reference (publisher node -> mapping
+    node, `kitti_publisher/scripts/publisher.py:15-71`).  It owns no map
+    and touches no device."""
+    import dataclasses
+    import json as _json
+
+    from .io import synthetic
+    from .io.bridge import MappingClient
+    from . import kitti_config
+
+    cfg = kitti_config()
+    cam_overrides = {k: getattr(args, k) for k in
+                     ("width", "height", "fx", "fy", "cx", "cy")
+                     if getattr(args, k, None) is not None}
+    if cam_overrides:
+        cfg = dataclasses.replace(
+            cfg, camera=dataclasses.replace(cfg.camera, **cam_overrides))
+    scene = synthetic.default_scene()
+    poses = (synthetic.loop_trajectory(args.frames, radius=10.0) if args.loop
+             else synthetic.forward_trajectory(args.frames, step=0.4))
+    address = args.socket if args.socket else (args.host, args.port)
+    t_last = 0.0
+    with MappingClient(address) as client:
+        for i, pose in enumerate(poses):
+            img, dep = scene.render(cfg, pose)
+            stamp = i / max(args.rate, 1e-9) if args.rate > 0 else float(i)
+            client.publish_pose(stamp, pose,
+                                is_keyframe=(i % args.kf_every == 0))
+            if args.stereo:
+                rp = np.array(pose, np.float64).copy()
+                rp[:3, 3] += rp[:3, 0] * args.baseline
+                rimg, _ = scene.render(cfg, rp)
+                client.publish_stereo(stamp, img, rimg)
+            else:
+                client.publish_image(stamp, img)
+                client.publish_depth(stamp, dep)
+            t_last = _throttle(args.rate, t_last)
+        print("metrics:", _json.dumps(
+            {k: round(float(v), 3) for k, v in
+             client.metrics()["metrics"].items()}))
+        if args.save:
+            print("saved:", client.save_map(args.save, what="mesh"))
+        if args.shutdown:
+            print("shutdown:", client.shutdown())
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="densesurfelmapping_tpu_torch",
@@ -609,6 +752,59 @@ def main(argv=None):
     p.add_argument("--seq", type=int, default=0)
     p.add_argument("--max-frames", type=int, default=0)
     p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("multi", help="multi-session serving demo "
+                                     "(B streams, one batched pass/round)")
+    common(p)
+    p.add_argument("--streams", type=int, default=4)
+    p.add_argument("--frames", type=int, default=50)
+    p.add_argument("--stereo", action="store_true",
+                   help="serve raw stereo pairs: depth computed on-device "
+                        "for every stream (KITTI baseline)")
+    p.add_argument("--sgm", action="store_true",
+                   help="semi-global aggregation for --stereo")
+    stereo_post_opts(p)
+    p.set_defaults(fn=cmd_multi)
+
+    def bridge_addr(p):
+        p.add_argument("--host", default="127.0.0.1")
+        p.add_argument("--port", type=int, default=7135)
+        p.add_argument("--socket", default="",
+                       help="unix-domain socket path (overrides host/port)")
+
+    p = sub.add_parser("serve", help="live mapping server over the socket "
+                       "bridge (the reference's ros_node as a service)")
+    common(p)
+    bridge_addr(p)
+    p.add_argument("--queue-depth", type=int, default=256,
+                   help="ingest queue bound; oldest frames drop when full "
+                        "(ros_node.cpp:24-31 queue semantics)")
+    p.add_argument("--stereo", action="store_true",
+                   help="expect stereo pairs; depth computed on-device")
+    p.add_argument("--baseline", type=float, default=0.54)
+    p.add_argument("--sgm", action="store_true")
+    p.add_argument("--max-disparity", type=int, default=128)
+    stereo_post_opts(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("publish", help="demo client: stream the synthetic "
+                       "scene to a `serve` process")
+    bridge_addr(p)
+    for name, typ in (("width", int), ("height", int), ("fx", float),
+                      ("fy", float), ("cx", float), ("cy", float)):
+        p.add_argument(f"--{name}", type=typ, default=None,
+                       help=f"camera {name} override (match the server's)")
+    p.add_argument("--frames", type=int, default=120)
+    p.add_argument("--rate", type=float, default=0.0)
+    p.add_argument("--kf-every", type=int, default=1)
+    p.add_argument("--loop", action="store_true")
+    p.add_argument("--stereo", action="store_true")
+    p.add_argument("--baseline", type=float, default=0.54)
+    p.add_argument("--save", default="", help="ask the server to save a "
+                   "mesh here when done (the save_map topic)")
+    p.add_argument("--shutdown", action="store_true",
+                   help="request server shutdown when done")
+    p.set_defaults(fn=cmd_publish)
 
     args = ap.parse_args(argv)
     if getattr(args, "trace", ""):

@@ -17,6 +17,13 @@
 // memory, and B2/B3 stage the pixels of a strip of seeds.  Their launch
 // geometry comes from ops/cuda/slic.py (`assign_plan`, `centroid_plan`,
 // `huber_plan`), checked on the CPU.
+//
+// Stream axis: each entry takes nb frames (the streams of a multi-session
+// fleet, the counterpart of jax.vmap over the TPU kernels, which adds a
+// grid axis per stream) and launches once for all of them.  blockIdx.z is
+// the stream; stream z's pixel planes start z * h * w elements and its
+// seed planes z * rows * cols elements after the first, and nothing else
+// in a block depends on z.  nb = 1 is the single-frame launch.
 
 #include <cuda_runtime.h>
 
@@ -73,8 +80,21 @@ __global__ void __launch_bounds__(kTileX * kAssignRows) slic_assign_kernel(
     const float* __restrict__ seed_y, const float* __restrict__ seed_i,
     const float* __restrict__ seed_d, const unsigned char* __restrict__ stable,
     int* __restrict__ new_assignment, unsigned char* __restrict__ claimed,
-    int h, int w, int cols, int oh, int ow, int sp, int nsy, int nsx,
-    float inv_half_sq) {
+    int h, int w, int cols, int n_seeds, int oh, int ow, int sp, int nsy,
+    int nsx, float inv_half_sq) {
+  // this block's stream: its planes
+  const size_t px0 = static_cast<size_t>(blockIdx.z) * h * w;
+  const size_t sd0 = static_cast<size_t>(blockIdx.z) * n_seeds;
+  image += px0;
+  inv_depth += px0;
+  assignment += px0;
+  new_assignment += px0;
+  seed_x += sd0;
+  seed_y += sd0;
+  seed_i += sd0;
+  seed_d += sd0;
+  stable += sd0;
+  claimed += sd0;
   const int ns = nsy * nsx;
   extern __shared__ float4 s_seed[];                  // [ns] x, y, i, 1/d
   int* s_id = reinterpret_cast<int*>(s_seed + ns);    // [ns] id or -1
@@ -122,6 +142,7 @@ __global__ void __launch_bounds__(kTileX * kAssignRows) slic_assign_kernel(
     const int y = y0 + tid, ty = y / sp;
     s_row[tid] = ((ty - scy0) << 8) | (y - ty * sp);
   }
+  // once per stream: block (0, 0) of each z
   if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0) claimed[0] = 1;
   __syncthreads();
 
@@ -324,6 +345,13 @@ __global__ void __launch_bounds__(kStripSeeds * 32) slic_centroid_kernel(
     const float* __restrict__ image, const float* __restrict__ depth,
     const int* __restrict__ assignment, float* __restrict__ out, int h, int w,
     int cols, int n_seeds, int oh, int ow, int sp, int chunks, int per_lane) {
+  // stream z: its planes; out is (6, nb, rows, cols)
+  const size_t px0 = static_cast<size_t>(blockIdx.z) * h * w;
+  image += px0;
+  depth += px0;
+  assignment += px0;
+  out += static_cast<size_t>(blockIdx.z) * n_seeds;
+  const size_t plane = static_cast<size_t>(gridDim.z) * n_seeds;
   extern __shared__ float4 s_tiles[];  // image, depth, assignment tiles
   const Strip s(sp, chunks);
   float* s_img = reinterpret_cast<float*>(s_tiles);
@@ -365,11 +393,11 @@ __global__ void __launch_bounds__(kStripSeeds * 32) slic_centroid_kernel(
   sd = warp_sum(sd);
   if (lane == 0) {
     out[b] = static_cast<float>(n);
-    out[n_seeds + b] = sx;
-    out[2 * n_seeds + b] = sy;
-    out[3 * n_seeds + b] = si;
-    out[4 * n_seeds + b] = static_cast<float>(nd);
-    out[5 * n_seeds + b] = sd;
+    out[plane + b] = sx;
+    out[2 * plane + b] = sy;
+    out[3 * plane + b] = si;
+    out[4 * plane + b] = static_cast<float>(nd);
+    out[5 * plane + b] = sd;
   }
 }
 
@@ -396,8 +424,16 @@ __global__ void __launch_bounds__(kStripSeeds * 32) slic_huber_kernel(
     const float* __restrict__ depth, const int* __restrict__ assignment,
     const float* __restrict__ mean_in,
     const unsigned char* __restrict__ conv_in, float* __restrict__ mean_out,
-    int h, int w, int cols, int oh, int ow, int sp, int chunks, int per_lane,
-    float hr) {
+    int h, int w, int cols, int n_seeds, int oh, int ow, int sp, int chunks,
+    int per_lane, float hr) {
+  // stream z: its planes
+  const size_t px0 = static_cast<size_t>(blockIdx.z) * h * w;
+  const size_t sd0 = static_cast<size_t>(blockIdx.z) * n_seeds;
+  depth += px0;
+  assignment += px0;
+  mean_in += sd0;
+  conv_in += sd0;
+  mean_out += sd0;
   // depth, assignment tiles; then the member lists
   extern __shared__ float4 s_tiles[];
   const Strip s(sp, chunks);
@@ -452,16 +488,17 @@ __global__ void __launch_bounds__(kStripSeeds * 32) slic_huber_kernel(
 }
 
 // Opt a strip kernel into `smem` bytes of dynamic shared memory (needed
-// above 48 KB) and launch it, one block per kStripSeeds seeds of a row.
+// above 48 KB) and launch it, one block per kStripSeeds seeds of a row and
+// stream.
 template <typename... Params, typename... Args>
-int launch_strip(void (*kernel)(Params...), int rows, int cols, int smem,
-                 void* stream, Args... args) {
+int launch_strip(void (*kernel)(Params...), int rows, int cols, int nb,
+                 int smem, void* stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((cols + kStripSeeds - 1) / kStripSeeds, rows);
+  const dim3 grid((cols + kStripSeeds - 1) / kStripSeeds, rows, nb);
   kernel<<<grid, kStripSeeds * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
@@ -475,11 +512,12 @@ int slic_assign(const float* image, const float* inv_depth,
                 const int* assignment, const float* seed_x,
                 const float* seed_y, const float* seed_i, const float* seed_d,
                 const unsigned char* stable, int* new_assignment,
-                unsigned char* claimed, int h, int w, int rows, int cols,
-                int oh, int ow, int sp, int nsy, int nsx, int smem,
+                unsigned char* claimed, int nb, int h, int w, int rows,
+                int cols, int oh, int ow, int sp, int nsy, int nsx, int smem,
                 void* stream) {
   // the plan's staged seed grid must hold every tile's cells and their ring
-  if (sp < 2 || sp > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (sp < 2 || sp > 16 || nb < 1 || nb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   int need_y = 0, need_x = 0;
   for (int y0 = 0; y0 < h; y0 += kTileY) {
     const int n = (y0 + kTileY - 1) / sp - y0 / sp + 3;
@@ -494,35 +532,37 @@ int slic_assign(const float* image, const float* inv_depth,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      cudaMemsetAsync(claimed, 0, static_cast<size_t>(rows) * cols, s);
+      cudaMemsetAsync(claimed, 0, static_cast<size_t>(nb) * rows * cols, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the f32 reciprocal, as PyTorch-CUDA takes it for x / (sp/2)^2
   const float inv_half_sq = 1.0f / static_cast<float>((sp / 2) * (sp / 2));
   const dim3 block(kTileX, kAssignRows);
-  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY, nb);
   slic_assign_kernel<<<grid, block, smem, s>>>(
       image, inv_depth, assignment, seed_x, seed_y, seed_i, seed_d, stable,
-      new_assignment, claimed, h, w, cols, oh, ow, sp, nsy, nsx,
+      new_assignment, claimed, h, w, cols, rows * cols, oh, ow, sp, nsy, nsx,
       inv_half_sq);
   return static_cast<int>(cudaGetLastError());
 }
 
 int slic_centroid(const float* image, const float* depth,
-                  const int* assignment, float* out, int h, int w, int rows,
-                  int cols, int oh, int ow, int sp, int chunks, int per_lane,
-                  int smem, void* stream) {
-  return launch_strip(slic_centroid_kernel, rows, cols, smem, stream, image,
-                      depth, assignment, out, h, w, cols, rows * cols, oh,
-                      ow, sp, chunks, per_lane);
+                  const int* assignment, float* out, int nb, int h, int w,
+                  int rows, int cols, int oh, int ow, int sp, int chunks,
+                  int per_lane, int smem, void* stream) {
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_strip(slic_centroid_kernel, rows, cols, nb, smem, stream,
+                      image, depth, assignment, out, h, w, cols, rows * cols,
+                      oh, ow, sp, chunks, per_lane);
 }
 
 int slic_huber(const float* depth, const int* assignment, const float* mean_in,
-               const unsigned char* conv_in, float* mean_out, int h, int w,
-               int rows, int cols, int oh, int ow, int sp, int chunks,
+               const unsigned char* conv_in, float* mean_out, int nb, int h,
+               int w, int rows, int cols, int oh, int ow, int sp, int chunks,
                int per_lane, int smem, float hr, void* stream) {
-  return launch_strip(slic_huber_kernel, rows, cols, smem, stream, depth,
-                      assignment, mean_in, conv_in, mean_out, h, w, cols, oh,
-                      ow, sp, chunks, per_lane, hr);
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_strip(slic_huber_kernel, rows, cols, nb, smem, stream, depth,
+                      assignment, mean_in, conv_in, mean_out, h, w, cols,
+                      rows * cols, oh, ow, sp, chunks, per_lane, hr);
 }
 
 }  // extern "C"

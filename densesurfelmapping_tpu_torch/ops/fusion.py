@@ -165,9 +165,10 @@ def _fuse_rows(config: SurfelMapConfig, bank: SurfelBank,
 
     # seed.fused |= any committing surfel hit it (a scatter-max OR in place
     # of the reference's racy boolean write at fusion_functions.cpp:311)
+    # (out of place: under torch.func.vmap the zeros are not batched)
     fused_part = torch.zeros(config.num_seeds, dtype=torch.int32,
-                             device=depth.device)
-    fused_part.scatter_reduce_(0, sp_idx, commit.to(torch.int32), "amax")
+                             device=depth.device).scatter_reduce(
+        0, sp_idx, commit.to(torch.int32), "amax")
 
     return (torch.where(cm, fused_p, position),
             torch.where(cm, fused_n_w, normal),
@@ -240,8 +241,7 @@ def append_new(bank: SurfelBank, new_fields: dict,
     for k in FIELDS:
         old, new = getattr(bank, k), new_fields[k]
         slab = torch.zeros((S + 1,) + new.shape[1:], dtype=new.dtype,
-                           device=dev)
-        slab.index_copy_(0, dest, new)
+                           device=dev).index_copy(0, dest, new)
         keep = take.reshape((S,) + (1,) * (new.dim() - 1))
         old[rows] = torch.where(keep, slab[:S], old[rows])
     bank.count.add_(n_new)

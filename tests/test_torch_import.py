@@ -38,7 +38,8 @@ def test_port_imports_without_jax():
     assert len(res["modules"]) >= 15, res["modules"]
     for name in ("cli", "__main__", "eval.fidelity", "native.loader",
                  "io.export", "io.png", "io.kitti", "io.tum", "io.posefeed",
-                 "io.stressfeed", "viz"):
+                 "io.stressfeed", "viz", "io.bridge", "parallel.multistream",
+                 "pipeline.multi_session"):
         assert f"densesurfelmapping_tpu_torch.{name}" in res["modules"], name
     assert not res["jax"]
     assert not res["reference"]
@@ -63,6 +64,71 @@ def test_stereo_modules_import_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert not res["jax"]
     assert res["loaded"] == []
+
+
+_BLOCK_JAX = """
+import importlib, importlib.abc, json, sys
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib", "flax")):
+            raise ImportError(f"{name} is unimportable here")
+        return None
+
+sys.meta_path.insert(0, NoJax())
+try:
+    import jax  # noqa: F401
+except ImportError:
+    blocked = True
+else:
+    blocked = False
+mod = importlib.import_module("densesurfelmapping_tpu_torch." + sys.argv[1])
+print(json.dumps({"blocked": blocked, "file": mod.__file__,
+                  "jax": "jax" in sys.modules,
+                  "reference": "densesurfelmapping_tpu" in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("name", ["parallel.multistream",
+                                  "pipeline.multi_session", "io.bridge"])
+def test_serving_modules_import_with_jax_unimportable(name):
+    """The serving slice's modules import with jax made unimportable (an
+    import hook refuses it), as on the GPU machine, which has no jax."""
+    out = subprocess.run([sys.executable, "-c", _BLOCK_JAX, name],
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["blocked"]
+    assert res["file"].endswith(name.replace(".", "/") + ".py")
+    assert not res["jax"] and not res["reference"]
+
+
+@pytest.mark.parametrize("size", [(48, 64), (47, 63)])
+def test_batched_payload_decode(size):
+    """multistream.unpack_payload and the batched step's frame decode
+    recover each row of a (B, 3 H W + 72 + P) payload as the single-frame
+    decode does, also when the row's fields start at unaligned offsets."""
+    from densesurfelmapping_tpu_torch.parallel import multistream
+    h, w = size
+    cam = tcfg.CameraIntrinsics(width=w, height=h, fx=60.0, fy=60.0,
+                                cx=w / 2, cy=h / 2)
+    cfg = tcfg.SurfelMapConfig(camera=cam, surfel_capacity=256,
+                               lane_align=8, max_keyframes=8)
+    rows = []
+    for k in range(3):
+        img, dep = _frame(h, w, 10 + k)
+        pose = np.arange(16, dtype=np.float32).reshape(4, 4) + k
+        mask = np.arange(8) % (k + 2) == 0
+        rows.append(tstate.pack_frame_with_aux(
+            cfg, img, dep, tstate.pack_aux(pose, 3 + k, mask, bf=0.5 * k)))
+    payload = torch.from_numpy(np.stack(rows))
+    hw3 = 3 * h * w
+    frames, poses, refs, bf, masks = multistream.unpack_payload(
+        payload, hw3)
+    for k in range(3):
+        p, ref, b, m = fuse_step.unpack_aux(payload[k, hw3:])
+        assert torch.equal(poses[k], p) and int(refs[k]) == int(ref)
+        assert float(bf[k]) == float(b) and torch.equal(masks[k], m)
+        assert torch.equal(frames[k], payload[k, :hw3])
 
 
 def test_tf32_off_at_import():
