@@ -46,7 +46,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
                round, peak device memory
  10. multi-stereo - 2 stereo streams x 8 rounds (--sgm): B5/B6 once per
                stream and round, maps equal to solo stereo drives (1e-4 m)
- 11. cli     - the port's CLI in this process (cli.main, --device cuda) on
+ 11. batch   - fuse_frames_scan over 8 KITTI frames against 8 eager steps
+               (torch.equal); fuse_frames_looped (K = 8, 8 laps: one lap
+               captured in a CUDA graph and replayed) against the eager
+               loop (trace and bank torch.equal), each SLIC kernel 3x per
+               step in the profiler's records; the replay's device frames/s
+               beside the eager loop's, and the call's peak memory
+ 12. sharded - ShardedDeviceResidentMapping on a (1, 2) mesh of this card
+               (2 virtual shards), 24 frames under the sync check,
+               replicated (SLIC 3x per frame per shard) and frame-sharded
+               (the slabs run the plain SLIC functions), and stereo over 4
+               pairs (B5/B6 once per frame per shard), each equal to the
+               dense DeviceResidentMapping (1e-4 m), a loop warp, frames/s
+               of each; sharded_sgm_disparity on 2 shards (a 61 x 97 crop
+               and KITTI size) equal to the replicated plain disparity
+ 13. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
                (the seven outputs, MAE < 0.3 m, 3 SLIC launches of each
@@ -62,8 +76,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
                subprocess fed by publish --save --shutdown over a unix
                socket (a non-empty mesh), and an in-process MappingServer
                over a CUDA DeviceResidentMapping equal to a direct feed
-               (1e-5 m); writes under build/cli/
- 12. profile - device ms/frame of the stereo drive by fuse-step scope and
+               (1e-5 m), and diagnose --fuse-frames 15 (every key,
+               backend cuda, block_lies false); writes under build/cli/
+ 14. profile - device ms/frame of the stereo drive by fuse-step scope and
                of the SGM and SLIC kernels
 A kernel's time is its device time from the profiler's records of that
 kernel (`kernel_time`), printed beside the wrapper's host time per call; a
@@ -624,11 +639,18 @@ def drive(config, frames, device, pipelined: bool, sync_checked: bool):
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping)
     drv = DeviceResidentMapping(config, device=device, pipelined=pipelined)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    fps = feed(drv, frames, sync_checked)
+    drv.close()
+    return drv, fps
+
+
+def feed(drv, frames, sync_checked: bool) -> float:
+    """Feed depth frames to a driver (keyframe every 2nd frame), under the
+    sync check if asked (any host-device synchronisation in the steady
+    feed raises); frames/s to a device synchronize."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     if sync_checked:
-        # any host-device synchronisation in the steady feed raises
         torch.cuda.set_sync_debug_mode("error")
     try:
         for i, (img, dep, pose) in enumerate(frames):
@@ -639,11 +661,8 @@ def drive(config, frames, device, pipelined: bool, sync_checked: bool):
     finally:
         if sync_checked:
             torch.cuda.set_sync_debug_mode(0)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    fps = len(frames) / (time.perf_counter() - t0)
-    drv.close()
-    return drv, fps
+    torch.cuda.synchronize()
+    return len(frames) / (time.perf_counter() - t0)
 
 
 def check_map(rows: dict, drv, ground_y: float) -> dict:
@@ -665,14 +684,13 @@ def check_map(rows: dict, drv, ground_y: float) -> dict:
 def check_warp(drv) -> float:
     """A loop_path shifting every keyframe by one translation must move
     every live surfel by exactly that translation."""
-    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
-    before = bank_to_numpy(drv.bank)
+    before = drv._bank_host()
     shift = np.eye(4)
     shift[:3, 3] = (0.25, -0.5, 1.0)
     loop_path = [shift @ kf.cam_pose for kf in drv.graph.keyframes]
     drv.feed_pose(1e6, shift @ drv.graph.keyframes[-1].cam_pose,
                   loop_path=loop_path)
-    after = bank_to_numpy(drv.bank)
+    after = drv._bank_host()
     live = before["update_times"] > 0
     moved = after["position"][live] - before["position"][live]
     err = float(np.abs(moved - shift[:3, 3]).max())
@@ -693,7 +711,16 @@ def drive_stereo(config, pairs, device, scfg, sync_checked: bool):
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping)
     drv = DeviceResidentMapping(config, device=device)
-    drv.enable_stereo(bf=config.camera.fx * BASELINE_M, stereo_config=scfg)
+    fps = feed_pairs(drv, pairs, scfg, sync_checked)
+    drv.close()
+    return drv, fps
+
+
+def feed_pairs(drv, pairs, scfg, sync_checked: bool) -> float:
+    """enable_stereo (KITTI baseline) and feed stereo pairs to a driver as
+    `feed` feeds depth frames; frames/s to a device synchronize."""
+    drv.enable_stereo(bf=drv.config.camera.fx * BASELINE_M,
+                      stereo_config=scfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if sync_checked:
@@ -707,9 +734,7 @@ def drive_stereo(config, pairs, device, scfg, sync_checked: bool):
         if sync_checked:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    fps = len(pairs) / (time.perf_counter() - t0)
-    drv.close()
-    return drv, fps
+    return len(pairs) / (time.perf_counter() - t0)
 
 
 def depth_check(config, pair, device) -> tuple:
@@ -925,6 +950,21 @@ def phase_cli(device, drive_frames) -> dict:
     def add(counts):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+
+    # diagnose: one JSON line with the JAX package's keys
+    (rc, out, _), n = counted(lambda: run_cli(["diagnose", "--fuse-frames",
+                                               "15"]))
+    add(n)
+    diag = json.loads(out.strip().splitlines()[-1])
+    require(rc == 0 and set(diag) == {"backend", "dispatch_ms", "h2d_mbps",
+                                      "fuse_ms", "block_lies", "healthy"},
+            f"diagnose: rc {rc}, keys {sorted(diag)}")
+    require(diag["backend"] == "cuda" and diag["block_lies"] is False,
+            f"diagnose: {diag}")
+    require(all(n[k] == 3 * 17 for k in ("slic_assign", "slic_centroid",
+                                         "slic_huber")),
+            f"diagnose: SLIC launches {n} (3 per fused frame, 17 frames)")
+    say("cli", f"diagnose on the card: {json.dumps(diag)}")
 
     # the host pack of one KITTI frame: native encoder against numpy
     img, dep = synthetic.default_scene().render(cfg, np.eye(4))
@@ -1717,8 +1757,275 @@ def phase_profile(device) -> None:
             f"{c / n:.1f}/frame")
 
 
+N_BATCH = 8             # K: frames of the batch phase's stack
+N_LAPS = 8              # n_loops of the looped replay
+N_SHARDED = 24          # frames of the sharded drives
+N_SHARDED_STEREO = 4    # pairs of the sharded stereo drive
+SHARDED_TOL_M = 1e-4    # the JAX package's sharded == dense tolerance
+SLIC = ("slic_assign", "slic_centroid", "slic_huber")
+
+
+def slic_records(prof) -> dict:
+    """Kernel records of each SLIC kernel in a profiler window."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
+    return {k: sum(f"{k}_kernel" in e.name for e in dev) for k in SLIC}
+
+
+def phase_batch(device, frames) -> dict:
+    """The batch replay paths on the card: fuse_frames_scan against eager
+    steps, fuse_frames_looped (one lap captured in a CUDA graph, replayed)
+    against the eager loop, and the replay's device frames/s beside the
+    eager loop's.  Returns the kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core.state import (FIELDS, SurfelBank,
+                                                          compact_frame)
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    ci, cd = zip(*(compact_frame(cfg, img, dep)
+                   for img, dep, _ in frames[:N_BATCH]))
+    imgs = torch.from_numpy(np.stack(ci)).to(device)
+    deps = torch.from_numpy(np.stack(cd)).to(device)
+    poses = torch.from_numpy(np.stack(
+        [p for _, _, p in frames[:N_BATCH]]).astype(np.float32)).to(device)
+    idx = torch.arange(N_BATCH, dtype=torch.int32, device=device)
+    keys = FIELDS + ("count",)
+
+    def empty():
+        return SurfelBank.empty(cfg.surfel_capacity, device)
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, k), getattr(b, k)) for k in keys)
+
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # fuse_frames_scan == N eager fuse_frame_compact calls
+    scan = empty()
+    (_, stats), n = counted(lambda: FS.fuse_frames_scan(
+        cfg, scan, imgs, deps, poses, idx))
+    add(n)
+    eager = empty()
+    for i in range(N_BATCH):
+        FS.fuse_frame_compact(cfg, eager, imgs[i], deps[i], poses[i], idx[i])
+    require(same(scan, eager), "fuse_frames_scan != eager steps")
+    require(all(n[k] == cfg.sp_iters * N_BATCH for k in SLIC),
+            f"fuse_frames_scan: SLIC launches {n}")
+    say("batch", f"fuse_frames_scan over {N_BATCH} KITTI frames == "
+        f"{N_BATCH} eager fuse_frame_compact calls (torch.equal, every "
+        f"field); n_new per frame {stats['n_new'].tolist()}")
+
+    # the eager loop: step t fuses frame t mod K with frame index t
+    steps = N_LAPS * N_BATCH
+    loop = empty()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace_e = []
+    for t in range(steps):
+        i = t % N_BATCH
+        FS.fuse_frame_compact(cfg, loop, imgs[i], deps[i], poses[i],
+                              torch.full((), t, dtype=torch.int32,
+                                         device=device))
+        trace_e.append(loop.count.clone())
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    trace_e = torch.stack(trace_e)
+
+    # fuse_frames_looped: the graph, under the profiler (its records show
+    # each SLIC kernel 3x per step: the warm-up lap and every replay)
+    graph = empty()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (_, trace_g), n = counted(lambda: FS.fuse_frames_looped(
+            cfg, N_LAPS, graph, imgs, deps, poses))
+    peak = torch.cuda.max_memory_allocated() - base
+    add(n)
+    recs = slic_records(prof)
+    require(torch.equal(trace_g, trace_e), "looped replay: trace differs "
+            "from the eager loop")
+    require(same(graph, loop), "looped replay: bank differs from the eager "
+            "loop")
+    want = cfg.sp_iters * N_BATCH * (N_LAPS + 1)
+    require(all(want - 2 <= recs[k] <= want for k in SLIC),
+            f"profiler records of the SLIC kernels {recs}, expected {want} "
+            f"each (3 per step: the warm-up lap + {N_LAPS} replays)")
+    say("batch", f"fuse_frames_looped (K = {N_BATCH}, n_loops = {N_LAPS}): "
+        f"trace and bank == the eager loop (torch.equal); live count "
+        f"{trace_g[0].item()} -> {trace_g[-1].item()}; profiler records "
+        f"per SLIC kernel {recs} (3 per step over the warm-up lap and "
+        f"{N_LAPS} replays); wrapper launches {n} (warm-up + capture); "
+        f"peak device memory of the call {peak / 2**20:.1f} MiB above "
+        f"the {base / 2**20:.1f} MiB already allocated")
+
+    # the replay's device rate: one lap captured, n_loops replays between
+    # CUDA events (the host enqueues one replay per lap)
+    timed_bank = empty()
+    lap = FS.LapGraph(cfg, timed_bank, imgs, deps, poses, N_LAPS)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(N_LAPS):
+        lap.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replay_ms = start.elapsed_time(stop)
+    require(same(timed_bank, loop), "timed replay: bank differs")
+    say("batch", f"{steps} steps: graph replay {1e3 * steps / replay_ms:.2f} "
+        f"frames/s device ({replay_ms / steps:.3f} ms/step by CUDA events "
+        f"around {N_LAPS} replays; host wall {1e3 * wall / steps:.3f} "
+        f"ms/step), eager loop {steps / eager_s:.2f} frames/s "
+        f"({1e3 * eager_s / steps:.3f} ms/step to a synchronize)")
+    return total
+
+
+def sharded_rows(drv) -> dict:
+    """A driver's live bank rows, sorted (the order differs between
+    layouts)."""
+    rows = drv._bank_host()
+    live = rows["update_times"] > 0
+    order = np.lexsort(rows["position"][live].T[::-1])
+    return {k: v[live][order] for k, v in rows.items()}
+
+
+def same_map(a: dict, b: dict, what: str) -> float:
+    require(len(a["color"]) == len(b["color"]) > 0,
+            f"{what}: {len(a['color'])} vs {len(b['color'])} surfels")
+    for k in ("position", "normal", "size", "weight"):
+        require(bool(np.isfinite(a[k]).all()), f"{what}: NaN/Inf in {k}")
+    require(bool(np.array_equal(a["update_times"], b["update_times"])),
+            f"{what}: update_times differ")
+    err = float(max(np.abs(a[k] - b[k]).max() for k in ("position",
+                                                          "normal")))
+    require(err <= SHARDED_TOL_M, f"{what}: off by {err} m")
+    return err
+
+
+def phase_sharded(device, frames, pairs, smi: str) -> dict:
+    """The sharded drivers on a (1, 2) mesh of this one card (2 virtual
+    shards): ShardedDeviceResidentMapping, replicated and frame-sharded,
+    depth-fed under the sync check, and stereo, each against the dense
+    DeviceResidentMapping; a loop warp; sharded_sgm_disparity against the
+    replicated plain disparity.  Returns the kernel launches."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.models import stereo as ST
+    from densesurfelmapping_tpu_torch.parallel import sgm_sharding
+    from densesurfelmapping_tpu_torch.parallel.sharding import make_mesh
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping, ShardedDeviceResidentMapping)
+
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    mesh = make_mesh(2)
+    n_sh = mesh.shape["surfel"]
+    label = f"{n_sh} virtual shards on one card ({smi})"
+    say("sharded", f"mesh {mesh}: {label}")
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def make(kind):
+        if kind == "dense":
+            return DeviceResidentMapping(cfg, device=device)
+        return ShardedDeviceResidentMapping(
+            cfg, mesh, frame_sharded=(kind == "frame-sharded"))
+
+    drive_frames = frames[:N_SHARDED]
+    maps, rates = {}, {}
+    for kind in ("dense", "sharded", "frame-sharded"):
+        feed(make(kind), drive_frames[:2], sync_checked=False)   # warm-up
+        drv = make(kind)
+        rates[kind], n = counted(lambda: feed(drv, drive_frames,
+                                              sync_checked=True))
+        add(n)
+        maps[kind] = sharded_rows(drv)
+        if kind == "dense":
+            continue
+        want = 0 if kind == "frame-sharded" else \
+            cfg.sp_iters * N_SHARDED * n_sh
+        require(all(n[k] == want for k in SLIC),
+                f"{kind}: SLIC launches {n}, expected {want} each")
+        err = same_map(maps[kind], maps["dense"], kind)
+        require(drv.compactions > 0, f"{kind}: compaction never ran")
+        why = ("3 per frame per shard" if want else "the slabs run the "
+               "plain SLIC functions, as the JAX package's XLA path does")
+        say("sharded", f"{kind} drive, {N_SHARDED} KITTI frames under the "
+            f"sync check: {len(maps[kind]['color'])} surfels == the dense "
+            f"drive's within {err:.3g} m (bound {SHARDED_TOL_M}); SLIC "
+            f"launches {dict((k, n[k]) for k in SLIC)} ({why}); "
+            f"{drv.compactions} compactions")
+        if kind == "sharded":
+            say("sharded", f"loop warp: every live surfel moved by the "
+                f"shift within {check_warp(drv):.2e} m (bound {WARP_TOL_M})")
+    say("sharded", f"frames/s to a synchronize: dense {rates['dense']:.2f}, "
+        f"sharded {rates['sharded']:.2f}, frame-sharded "
+        f"{rates['frame-sharded']:.2f} ({label}: the replicated work runs "
+        f"once per shard on the same card; no multi-card scaling is "
+        f"measured)")
+
+    # stereo: the matcher once per shard and frame
+    pairs = pairs[:N_SHARDED_STEREO]
+    smaps = {}
+    for kind in ("dense", "sharded"):
+        feed_pairs(make(kind), pairs[:2], sgm_config(),
+                   sync_checked=False)                          # warm-up
+        drv = make(kind)
+        _, n = counted(lambda: feed_pairs(drv, pairs, sgm_config(),
+                                          sync_checked=True))
+        add(n)
+        smaps[kind] = sharded_rows(drv)
+        shards = n_sh if kind == "sharded" else 1
+        require(n["sgm_census_x"] == n["sgm_census_y"]
+                == N_SHARDED_STEREO * shards,
+                f"stereo {kind}: B5/B6 launches {n}")
+        require(all(n[k] == cfg.sp_iters * N_SHARDED_STEREO * shards
+                    for k in SLIC), f"stereo {kind}: SLIC launches {n}")
+    err = same_map(smaps["sharded"], smaps["dense"], "sharded stereo")
+    say("sharded", f"stereo ({N_SHARDED_STEREO} pairs, --sgm) under the "
+        f"sync check: {len(smaps['sharded']['color'])} surfels == the dense "
+        f"stereo drive's within {err:.3g} m; B5/B6 once per frame per shard")
+
+    # sharded_sgm_disparity: bitwise the replicated plain disparity
+    scfg = sgm_config()._replace(sgm_pallas=False)
+    for tag, (li, ri, _, _) in (("61 x 97 crop", pairs[0]),
+                                ("KITTI", pairs[0])):
+        left = torch.from_numpy(li).to(device).float()
+        right = torch.from_numpy(ri).to(device).float()
+        if tag != "KITTI":
+            left, right = left[100:161, 300:397], right[100:161, 300:397]
+            cfg_c = scfg._replace(max_disparity=40, min_disparity=3)
+        else:
+            cfg_c = scfg
+        h, w = left.shape
+        want = ST.disparity(left, right, cfg_c)
+        t0 = time.perf_counter()
+        got = sgm_sharding.sharded_sgm_disparity(mesh, cfg_c, h, w)(left,
+                                                                   right)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(torch.equal(got, want), f"sharded_sgm_disparity ({tag}) != "
+                f"the replicated plain disparity")
+        say("sharded", f"sharded_sgm_disparity {tag} ({h} x {w}, "
+            f"{cfg_c.max_disparity - cfg_c.min_disparity} disparities, "
+            f"{cfg_c.sgm_paths} paths) on {n_sh} shards == replicated "
+            f"(torch.equal), valid {float((want > 0).float().mean()):.3f}; "
+            f"{secs:.2f} s (plain scans)")
+    return total
+
+
 PHASES = ("kernels", "sgm", "drive", "stereo", "multi-kernels", "multi",
-          "multi-stereo", "cli", "profile")
+          "multi-stereo", "batch", "sharded", "cli", "profile")
 
 
 def main() -> None:
@@ -1824,6 +2131,14 @@ def main() -> None:
     if run("multi-stereo"):
         add(phase_multi_stereo(device, pairs))
         lap("multi-stereo")
+    if run("batch"):
+        add(phase_batch(device, frames))
+        lap("batch")
+    if run("sharded"):
+        if pairs is None:
+            pairs = make_pairs(cfg, N_SHARDED_STEREO)
+        add(phase_sharded(device, frames, pairs, smi))
+        lap("sharded")
     if run("cli"):
         add(phase_cli(device, frames))
         lap("cli")

@@ -17,9 +17,10 @@ entry node with its param block (`surfel_fusion/launch/kitti_orb.launch:5-22`,
 
 The PyTorch port of the JAX package's CLI, with its subcommands synthetic,
 kitti, stress, tum, replay, multi (B sessions in one batched pass per
-round), serve and publish (the socket bridge, io/bridge.py); `diagnose` is
-not ported yet.  Mapping runs on `--device` (default cuda, which raises on a
-machine without a CUDA card; --device cpu runs the plain PyTorch paths).
+round), serve and publish (the socket bridge, io/bridge.py) and diagnose
+(device health probes, one JSON line).  Mapping runs on `--device` (default
+cuda, which raises on a machine without a CUDA card; --device cpu runs the
+plain PyTorch paths).
 
 Outputs per run (all optional, gated on --out): <out>.pcd stable cloud,
 <out>_mesh.ply hexagon mesh, <out>_cameras.ply frustum/pose-graph line set,
@@ -519,6 +520,19 @@ def cmd_multi(args):
     return 0
 
 
+def cmd_diagnose(args):
+    """Print one JSON line of device health: dispatch latency, H2D rate,
+    the chained fuse step's ms/frame, and whether a device synchronize
+    returned early (`utils/diagnostics.py`)."""
+    import json
+    from .utils.diagnostics import run_diagnostics
+
+    _device(args)
+    print(json.dumps(run_diagnostics(n_fuse=args.fuse_frames,
+                                     device=args.device)))
+    return 0
+
+
 def cmd_serve(args):
     """Live mapping server: the reference's `ros_node` as a socket service
     (`ros_node.cpp:13-53`: subscribe, queue-decouple, fuse, shutdown-save).
@@ -598,6 +612,8 @@ def cmd_publish(args):
 
 
 def main(argv=None):
+    from .utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     ap = argparse.ArgumentParser(
         prog="densesurfelmapping_tpu_torch",
         description="Dense surfel mapping on PyTorch + CUDA")
@@ -765,6 +781,14 @@ def main(argv=None):
                    help="semi-global aggregation for --stereo")
     stereo_post_opts(p)
     p.set_defaults(fn=cmd_multi)
+
+    p = sub.add_parser("diagnose", help="device health probes "
+                                        "(dispatch latency, H2D bandwidth, "
+                                        "fuse-step rate) as one JSON line")
+    p.add_argument("--fuse-frames", type=int, default=15)
+    p.add_argument("--device", default="cuda",
+                   help="device to probe (cuda raises without a CUDA card)")
+    p.set_defaults(fn=cmd_diagnose)
 
     def bridge_addr(p):
         p.add_argument("--host", default="127.0.0.1")

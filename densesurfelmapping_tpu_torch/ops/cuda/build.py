@@ -1,9 +1,11 @@
 """Build the port's CUDA sources (`csrc/*.cu`) at first use and load them.
 
 Each source compiles with nvcc into a shared library with a plain C
-interface, loaded with ctypes.  Libraries are cached under `build/kernels/`
-at the repository root, keyed by a hash of the source and the flags, so a
-second process starts without compiling.  Nothing here runs at import.
+interface, loaded with ctypes.  Libraries are cached in the directory of
+`utils/cache.kernel_dir()` (`build/kernels/` at the repository root, or
+`$DSM_CACHE_DIR/<backend>`), keyed by a hash of the source and the flags,
+so a second process starts without compiling.  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ...utils import cache
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # no --use_fast_math, and no FMA contraction: the kernels must round like
 # their plain PyTorch twins, op by op
@@ -51,9 +54,10 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{name}_{key}.so"
+    build_dir = cache.kernel_dir()
+    lib_path = build_dir / f"{name}_{key}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                                str(src)], capture_output=True, text=True)

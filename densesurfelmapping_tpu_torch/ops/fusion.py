@@ -265,3 +265,37 @@ def compact_bank(bank: SurfelBank) -> None:
         k_ = keep.reshape((-1,) + (1,) * (t.dim() - 1))
         t.copy_(torch.where(k_, moved, 0))
     bank.count.copy_(n_live)
+
+
+def compact_and_append(bank: SurfelBank, new_fields: dict,
+                       new_mask: torch.Tensor):
+    """Pack live surfels to the front and append the valid new surfels
+    after them, out of place: returns (a new bank, stats).  The sharded
+    step's tail (the JAX package's `compact_and_append`; the reference's
+    slot reuse, `surfel_map.cpp:1077-1112`, as two order-preserving
+    prefix-sum scatters).  New surfels that would overflow the capacity are
+    dropped and counted."""
+    cap = bank.capacity
+    live = bank.live_mask
+    live_i = live.to(torch.int32)
+    n_live = live_i.sum(dtype=torch.int32)
+    # rows whose destination is `cap` land in one spare row, dropped
+    dest_live = torch.where(live, torch.cumsum(live_i, 0) - 1, cap).long()
+
+    new_i = new_mask.to(torch.int32)
+    n_new_want = new_i.sum(dtype=torch.int32)
+    dest_new = n_live + torch.cumsum(new_i, 0) - 1
+    dest_new = torch.where(new_mask & (dest_new < cap), dest_new, cap).long()
+    n_new = torch.minimum(n_new_want, cap - n_live)
+
+    out = {}
+    for k in FIELDS:
+        old, new = getattr(bank, k), new_fields[k]
+        slab = torch.zeros((cap + 1,) + old.shape[1:], dtype=old.dtype,
+                           device=old.device)
+        slab = slab.index_copy(0, dest_live, old).index_copy(0, dest_new,
+                                                             new)
+        out[k] = slab[:cap]
+    compacted = SurfelBank(**out, count=n_live + n_new)
+    return compacted, dict(n_live=n_live, n_new=n_new,
+                           n_dropped=n_new_want - n_new)

@@ -11,6 +11,12 @@ the kernel's signature:
 
 `run_slic` picks by the tensors' device: on a CUDA tensor it launches the
 kernels (`ops/cuda/slic.py`), on a CPU tensor it runs these functions.
+
+`geom=` (every stage) overrides the static geometry of `device_geometry`:
+the column-slab path of `parallel/frame_sharding.py` passes each slab's
+masks and global coordinates.  The kernels take no such override, so a
+`geom` call runs these functions on any device, as the JAX package's
+`run_slic` runs its XLA path whenever `geom` is given.
 """
 
 from __future__ import annotations
@@ -117,12 +123,12 @@ def _neighbor_plane(field: torch.Tensor, di: int, dj: int,
 
 
 def initialize_seeds(config: SurfelMapConfig, image: torch.Tensor,
-                     depth: torch.Tensor) -> SuperpixelState:
+                     depth: torch.Tensor, geom=None) -> SuperpixelState:
     """Seed grid init (`fusion_functions.cpp:577-629`): centers on the SP
     grid; if the center has no depth, steal the first valid depth in the
     seed's window (row-major scan order)."""
     sp = config.sp_size
-    g = device_geometry(config, image.device)
+    g = geom or device_geometry(config, image.device)
     rows, cols = image.shape[0] // sp, image.shape[1] // sp
 
     half = sp // 2
@@ -159,7 +165,7 @@ def assign_sweep(config: SurfelMapConfig, image: torch.Tensor,
                  inv_depth: torch.Tensor, assignment: torch.Tensor,
                  x: torch.Tensor, y: torch.Tensor,
                  mean_intensity: torch.Tensor, mean_depth: torch.Tensor,
-                 stable: torch.Tensor):
+                 stable: torch.Tensor, geom=None):
     """One pixel-assignment sweep (`update_pixels_kernel`,
     `fusion_functions.cpp:389-453`).
 
@@ -167,7 +173,7 @@ def assign_sweep(config: SurfelMapConfig, image: torch.Tensor,
     current seed is stable keep their assignment; a seed is claimed when an
     updated pixel chose it (the caller clears its stable flag)."""
     sp = config.sp_size
-    g = device_geometry(config, image.device)
+    g = geom or device_geometry(config, image.device)
     px_y, px_x = g["px_y"], g["px_x"]
     half_sq = float((sp // 2) * (sp // 2))
 
@@ -212,8 +218,19 @@ def assign_sweep(config: SurfelMapConfig, image: torch.Tensor,
     best_cost = torch.where(all_has_depth, best_d, best_nd)
     chosen = torch.where(best_cost >= BIG_COST, -1, chosen)
 
-    cur_stable = stable.reshape(-1)[assignment.clamp_min(0).long()] \
-        & (assignment >= 0)
+    if geom is None:
+        cur_stable = stable.reshape(-1)[assignment.clamp_min(0).long()] \
+            & (assignment >= 0)
+    else:
+        # assignment holds GLOBAL flat ids: map them into this grid's
+        # columns (a column slab holds only its own)
+        rows, cols = stable.shape
+        ids = assignment.clamp_min(0)
+        id_r = ids // g["grid_cols"]
+        id_c = ids % g["grid_cols"] - g["col0"]
+        in_grid = (assignment >= 0) & (id_c >= 0) & (id_c < cols)
+        lidx = (id_r * cols + id_c).clamp(0, rows * cols - 1).long()
+        cur_stable = stable.reshape(-1)[lidx] & in_grid
     updated = g["pixel_valid"] & ~cur_stable
     new_assignment = torch.where(updated, chosen, assignment)
 
@@ -227,24 +244,25 @@ def assign_sweep(config: SurfelMapConfig, image: torch.Tensor,
     return new_assignment, claimed
 
 
-def _member_windows(config: SurfelMapConfig, assignment: torch.Tensor):
+def _member_windows(config: SurfelMapConfig, assignment: torch.Tensor,
+                    geom=None):
     """(R, C, K) membership of each seed's clamped window: the pixel is
     assigned to the seed and inside the reference's strict-< scan bound."""
-    g = device_geometry(config, assignment.device)
+    g = geom or device_geometry(config, assignment.device)
     assign_win = W.extract_windows(assignment, config.sp_size)
     return (assign_win == g["flat_id"][..., None]) & g["interior"]
 
 
 def seed_sums(config: SurfelMapConfig, image: torch.Tensor,
-              depth: torch.Tensor, assignment: torch.Tensor):
+              depth: torch.Tensor, assignment: torch.Tensor, geom=None):
     """Per-seed sums over the seed's own pixels inside its 2sp x 2sp window
     (`update_seeds_kernel`, `fusion_functions.cpp:468-533`).
 
     Returns six (R, C) f32 planes: n, sum x, sum y, sum intensity,
     n with depth > 0.1, sum of those depths."""
-    g = device_geometry(config, image.device)
+    g = geom or device_geometry(config, image.device)
     sp = config.sp_size
-    member = _member_windows(config, assignment)
+    member = _member_windows(config, assignment, geom)
     image_win = W.extract_windows(image, sp)
     depth_win = W.extract_windows(depth, sp)
     dmem = member & (depth_win > 0.1)
@@ -258,14 +276,14 @@ def seed_sums(config: SurfelMapConfig, image: torch.Tensor,
 
 def huber_mean_depth(config: SurfelMapConfig, depth: torch.Tensor,
                      assignment: torch.Tensor, mean: torch.Tensor,
-                     converged: torch.Tensor) -> torch.Tensor:
+                     converged: torch.Tensor, geom=None) -> torch.Tensor:
     """Five Huber-Newton steps of each seed's mean depth over its member
     pixels with depth > 0.1, with the |delta| < 0.01 convergence latch
     (`fusion_functions.cpp:534-554`).  Seeds already `converged` keep their
     mean.  Returns the (R, C) f32 mean."""
     hr = float(config.profile.huber_range)
     depth_win = W.extract_windows(depth, config.sp_size)
-    dmem = _member_windows(config, assignment) & (depth_win > 0.1)
+    dmem = _member_windows(config, assignment, geom) & (depth_win > 0.1)
     for _ in range(5):
         r = mean[..., None] - depth_win
         inl = (r < hr) & (r > -hr)
@@ -282,19 +300,23 @@ def huber_mean_depth(config: SurfelMapConfig, depth: torch.Tensor,
 # ----------------------------------------------------------------------
 # the SLIC stages
 # ----------------------------------------------------------------------
-def _kernels(use_kernels: bool):
+def _kernels(use_kernels: bool, geom=None):
     if use_kernels:
+        if geom is not None:
+            raise ValueError("the SLIC kernels take no geometry override")
         from .cuda import slic
         return slic.slic_assign, slic.slic_centroid, slic.slic_huber
-    return assign_sweep, seed_sums, huber_mean_depth
+    return tuple(functools.partial(fn, geom=geom) for fn in
+                 (assign_sweep, seed_sums, huber_mean_depth))
 
 
 def assign_pixels(config: SurfelMapConfig, seeds: SuperpixelState,
                   image: torch.Tensor, inv_depth: torch.Tensor,
-                  assignment: torch.Tensor, use_kernels: bool = False):
+                  assignment: torch.Tensor, use_kernels: bool = False,
+                  geom=None):
     """One assignment sweep; returns (new_assignment, seeds with every
     freshly claimed seed's stable flag cleared)."""
-    assign, _, _ = _kernels(use_kernels)
+    assign, _, _ = _kernels(use_kernels, geom)
     new_assignment, claimed = assign(
         config, image, inv_depth, assignment, seeds.x, seeds.y,
         seeds.mean_intensity, seeds.mean_depth, seeds.stable)
@@ -303,13 +325,13 @@ def assign_pixels(config: SurfelMapConfig, seeds: SuperpixelState,
 
 def update_seeds(config: SurfelMapConfig, seeds: SuperpixelState,
                  assignment: torch.Tensor, image: torch.Tensor,
-                 depth: torch.Tensor,
-                 use_kernels: bool = False) -> SuperpixelState:
+                 depth: torch.Tensor, use_kernels: bool = False,
+                 geom=None) -> SuperpixelState:
     """One seed-update sweep (`update_seeds_kernel`,
     `fusion_functions.cpp:468-561`): recompute centroid / mean intensity of
     every unstable seed, latch stability on small updates, and Huber-Newton
     the per-seed mean depth."""
-    _, sums, huber = _kernels(use_kernels)
+    _, sums, huber = _kernels(use_kernels, geom)
     n, sum_x, sum_y, sum_i, nd, sum_d = sums(config, image, depth,
                                              assignment)
     safe_n = n.clamp_min(1.0)
@@ -338,25 +360,31 @@ def update_seeds(config: SurfelMapConfig, seeds: SuperpixelState,
 
 
 def run_slic(config: SurfelMapConfig, image: torch.Tensor,
-             depth: torch.Tensor, use_kernels: bool | None = None):
+             depth: torch.Tensor, use_kernels: bool | None = None,
+             geom=None):
     """Full superpixel extraction (`generate_super_pixels`,
     `fusion_functions.cpp:960-975`): seed init + ITERATION_NUM x
     (assign, update).  Returns (seeds, assignment (H,W) i32 flat ids).
 
     use_kernels: None = the CUDA kernels on a CUDA tensor, the plain
-    functions on a CPU tensor; False forces the plain functions."""
+    functions on a CPU tensor; False forces the plain functions.
+    geom: a geometry override (a column slab): the plain functions run on
+    any device, as the JAX package's XLA path does there; asking for the
+    kernels with it raises."""
     if use_kernels is None:
-        use_kernels = image.is_cuda
+        use_kernels = image.is_cuda and geom is None
+    if use_kernels and geom is not None:
+        raise ValueError("the SLIC kernels take no geometry override")
     inv_depth = torch.where(depth > 0.01, 1.0 / depth.clamp_min(1e-20), 0.0)
 
-    seeds = initialize_seeds(config, image, depth)
+    seeds = initialize_seeds(config, image, depth, geom)
     # raw pixels start at seed 0 like the reference's zero-fill
     # (fusion_functions.cpp:964); padded pixels are pinned to -1 (no seed)
-    g = device_geometry(config, image.device)
+    g = geom or device_geometry(config, image.device)
     assignment = torch.where(g["pixel_valid"], 0, -1).to(torch.int32)
     for _ in range(config.sp_iters):
         assignment, seeds = assign_pixels(config, seeds, image, inv_depth,
-                                          assignment, use_kernels)
+                                          assignment, use_kernels, geom)
         seeds = update_seeds(config, seeds, assignment, image, depth,
-                             use_kernels)
+                             use_kernels, geom)
     return seeds, assignment

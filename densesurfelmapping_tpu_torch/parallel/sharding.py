@@ -1,0 +1,512 @@
+"""Execution over a device mesh: surfel-sharded fusion + stream parallelism.
+
+Counterpart of the JAX package's `parallel/sharding.py`.  The mesh is a
+(data, surfel) grid of devices driven by ONE host process (the JAX drivers
+are single-controller too):
+
+  * axis "data"   - independent camera streams: each row of the grid owns
+    some streams' frames and bank rows.
+  * axis "surfel" - each stream's surfel bank split into equal row slabs, one
+    `SurfelBank` per (stream, shard) on that shard's device.  `fuse_surfels`
+    is embarrassingly parallel over surfels against a replicated frame, so
+    the only collective of the fuse step is an OR (a max over int32) of the
+    per-seed fused flags before new-surfel extraction.  New surfels go to
+    shards round-robin by seed index, so shards stay balanced.
+
+The collectives of the JAX package are explicit tensor operations across
+the shards' tensors here (`_all_reduce`): the max of the fused flags, the
+sum of the stats, the min of the prior's coarse z-buffers; with several
+cards they are peer copies.  With one card the grid repeats it (virtual
+shards, as the JAX tests run 8 virtual CPU devices): every shard's work
+then runs on that card one after another, in the order of the shards, on
+the current stream.
+
+The superpixel/plane-fit stage, and the stereo front-end, run replicated on
+every shard's device, the JAX package's policy: on CUDA that is B1-B3 (and
+B5/B6) once per shard and frame.  `parallel/frame_sharding.py` splits the
+segmentation by image columns instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..config import SurfelMapConfig
+from ..core.state import FIELDS, FrameInput, SurfelBank
+from ..ops import fusion, normals, superpixel
+from ..ops import warp as warp_ops
+
+
+class Mesh:
+    """A (data, surfel) grid of torch devices: `shape["data"]` rows of
+    `shape["surfel"]` shards; `device(row, shard)` is a cell's device."""
+
+    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+        self.grid = [list(row) for row in grid]
+        self.shape = {"data": len(self.grid), "surfel": len(self.grid[0])}
+
+    def device(self, row: int, shard: int) -> torch.device:
+        return self.grid[row][shard]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {self.grid})"
+
+
+def _normal_device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"a mesh on {d}: no CUDA device is available")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_mesh(n_devices: int | None = None, data: int = 1,
+              devices=None) -> Mesh:
+    """Mesh ("data", "surfel") over `devices`: None = every CUDA card
+    (raises without one), a device (or its name) = that one device, or a
+    sequence of devices.  n_devices (default: as many as given) cells are
+    laid out row-major, data rows of n_devices / data shards; when it
+    exceeds the devices given they repeat in turn, so one card holds
+    several virtual shards."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is available "
+                               "(pass devices='cpu' for a CPU mesh)")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    elif isinstance(devices, (str, torch.device)):
+        devs = [_normal_device(devices)]
+    else:
+        devs = [_normal_device(d) for d in devices]
+    n = n_devices or len(devs)
+    if n % data:
+        raise ValueError(f"{n} devices do not split into {data} data rows")
+    flat = [devs[i % len(devs)] for i in range(n)]
+    per = n // data
+    return Mesh([flat[r * per:(r + 1) * per] for r in range(data)])
+
+
+@dataclasses.dataclass
+class ShardedBanks:
+    """Per-stream banks laid out for a mesh: `shards[b][s]` is stream b's
+    slab on shard s, a `SurfelBank` of capacity / n_shards rows on that
+    shard's device with its own count.  The host view of a stream's bank
+    is the shards' rows in shard order (`live_rows`)."""
+
+    shards: List[List[SurfelBank]]
+
+    @property
+    def n_streams(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards[0])
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.shards[0][0].capacity
+
+    def counts(self) -> np.ndarray:
+        """(B, n_shards) counts on the host (reads the device)."""
+        return np.array([[int(b.count) for b in row] for row in self.shards],
+                        np.int64)
+
+    def host(self, field: str) -> np.ndarray:
+        """(B, n_shards * rows, ...) host copy of one field: every shard's
+        rows in shard order (the JAX package's (B, N) layout)."""
+        return np.stack([np.concatenate([getattr(b, field).cpu().numpy()
+                                         for b in row])
+                         for row in self.shards])
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for row in self.shards for b in row
+                   for _, t in b.field_arrays())
+
+
+def replicate_banks(mesh: Mesh, config: SurfelMapConfig,
+                    n_streams: int) -> ShardedBanks:
+    """Empty per-stream banks laid out for the mesh.  Capacity is padded so
+    each surfel shard has equal rows; stream b lives on data row
+    b * data // n_streams."""
+    n = mesh.shape["surfel"]
+    rows = -(-config.surfel_capacity // n)
+    return ShardedBanks([
+        [SurfelBank.empty(rows, mesh.device(_row(mesh, b, n_streams), s))
+         for s in range(n)] for b in range(n_streams)])
+
+
+def _row(mesh: Mesh, stream: int, n_streams: int) -> int:
+    if n_streams % mesh.shape["data"]:
+        raise ValueError(f"{n_streams} streams do not split over "
+                         f"{mesh.shape['data']} data rows")
+    return stream * mesh.shape["data"] // n_streams
+
+
+def live_rows(field, counts) -> np.ndarray:
+    """Concatenated live rows of ONE stream's sharded bank field (host
+    numpy): shard s owns rows [s * slab, s * slab + counts[s]) of the
+    (n_shards * slab, ...) field.  The one place that encodes the layout."""
+    field = np.asarray(field)
+    counts = np.asarray(counts)
+    n_shards = counts.shape[0]
+    slab = field.shape[0] // n_shards
+    return np.concatenate([field[s * slab:s * slab + int(counts[s])]
+                           for s in range(n_shards)])
+
+
+def shard_frames(mesh: Mesh, frames: FrameInput) -> List[List[FrameInput]]:
+    """A batched FrameInput (leading stream axis) placed on the mesh:
+    `[b][s]` is stream b's frame on the device of its shard s (replicated
+    over "surfel")."""
+    n_streams = frames.image.shape[0]
+    out = []
+    for b in range(n_streams):
+        row = mesh.grid[_row(mesh, b, n_streams)]
+        out.append([FrameInput(
+            image=_to(frames.image[b], d), depth=_to(frames.depth[b], d),
+            pose=_to(frames.pose[b], d),
+            frame_index=_to(frames.frame_index[b], d)) for d in row])
+    return out
+
+
+# ----------------------------------------------------------------------
+# the collectives, as tensor operations across the shards
+# ----------------------------------------------------------------------
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t.to(device, non_blocking=True)
+
+
+def _all_reduce(tensors: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
+    """op-reduce one tensor per shard in shard order; every shard gets the
+    result on its own device (a no-op copy for a virtual shard)."""
+    acc = tensors[0]
+    for t in tensors[1:]:
+        acc = op(acc, _to(t, acc.device))
+    return [_to(acc, t.device) for t in tensors]
+
+
+def _replicate(t: torch.Tensor, row: Sequence[SurfelBank]):
+    """One copy of t on every shard's device."""
+    return [_to(t, b.device) for b in row]
+
+
+def _stack_streams(per_stream: List[dict]) -> dict:
+    """Per-stream stats dicts -> one dict of (B,) tensors on the device of
+    stream 0's first shard."""
+    dev = per_stream[0]["n_live"].device
+    return {k: torch.stack([_to(st[k], dev) for st in per_stream])
+            for k in per_stream[0]}
+
+
+# ----------------------------------------------------------------------
+# the fuse step of one stream over its shards
+# ----------------------------------------------------------------------
+def _fuse_stream(config: SurfelMapConfig, row: List[SurfelBank],
+                 frames: Sequence[FrameInput], pose_masks=None,
+                 segmented=None) -> dict:
+    """The sharded fuse step of one stream: updates `row` (its shards'
+    banks) in place and returns the stream's stats.
+
+    frames: the stream's frame on each shard's device.  segmented
+    (optional, one (seeds, assignment) per shard) is a precomputed
+    full-frame segmentation (`parallel/frame_sharding.py`); None runs the
+    stage replicated on every shard."""
+    n = len(row)
+    seeds_l, fused_l = [], []
+    for s in range(n):
+        fr = frames[s]
+        with torch.profiler.record_function("superpixel"):
+            if segmented is None:
+                seeds, assignment = superpixel.run_slic(config, fr.image,
+                                                        fr.depth)
+                seeds, _ = normals.compute_seed_planes(config, seeds,
+                                                       assignment, fr.depth)
+            else:
+                seeds, assignment = segmented[s]
+        with torch.profiler.record_function("fuse"):
+            fused = fusion.fuse_surfels(
+                config, row[s], seeds, assignment, fr.depth, fr.pose,
+                fr.frame_index,
+                pose_mask=None if pose_masks is None else pose_masks[s])
+        seeds_l.append(seeds)
+        fused_l.append(fused.to(torch.int32))
+
+    # seeds claimed by ANY shard's surfels: OR across the surfel axis
+    fused_all = [f > 0 for f in _all_reduce(fused_l, torch.maximum)]
+    per_shard = []
+    with torch.profiler.record_function("initialize"):
+        for s in range(n):
+            fr = frames[s]
+            new_fields, new_mask = fusion.extract_new_surfels(
+                config, seeds_l[s], fused_all[s], fr.pose, fr.frame_index)
+            # round-robin ownership of new surfels by seed index
+            seed_idx = torch.arange(new_mask.shape[0], device=new_mask.device)
+            new_mask = new_mask & (seed_idx % n == s)
+            bank, st = fusion.compact_and_append(row[s], new_fields,
+                                                 new_mask)
+            row[s] = bank
+            per_shard.append(st)
+    stats = {k: functools.reduce(torch.add, [_to(st[k], row[0].device)
+                                             for st in per_shard])
+             for k in ("n_live", "n_new", "n_dropped")}
+    stats["n_fused_seeds"] = fused_all[0].sum(dtype=torch.int32)
+    return stats
+
+
+def sharded_fuse_frame(config: SurfelMapConfig, mesh: Mesh):
+    """Multi-device fuse step over mesh ("data", "surfel").
+
+    Call: (banks, frames) -> (banks, stats): banks from `replicate_banks`
+    (updated in place), frames from `shard_frames`; stats (B,) each."""
+    del mesh    # the banks and frames carry their devices
+
+    def step(banks: ShardedBanks, frames):
+        return banks, _stack_streams([
+            _fuse_stream(config, banks.shards[b], frames[b])
+            for b in range(banks.n_streams)])
+    return step
+
+
+def sharded_fuse_frame_windowed(config: SurfelMapConfig, mesh: Mesh):
+    """sharded_fuse_frame with device-resident active-window gating: masks
+    (B, max_keyframes) bool; rows owned by out-of-window keyframes stay
+    frozen.  Call: (banks, frames, masks) -> (banks, stats)."""
+    del mesh
+
+    def step(banks: ShardedBanks, frames, masks: torch.Tensor):
+        return banks, _stack_streams([
+            _fuse_stream(config, row, frames[b],
+                         pose_masks=_replicate(masks[b], row))
+            for b, row in enumerate(banks.shards)])
+    return step
+
+
+def _packed_frames(config: SurfelMapConfig, row, buf, pose, ref):
+    """One stream's packed frame decoded on each of its shards' devices."""
+    from ..pipeline.fuse_step import ingest_frame, unpack_frame
+    out = []
+    for b in row:
+        img_u8, dep_f16 = unpack_frame(config, _to(buf, b.device))
+        img, dep = ingest_frame(config, img_u8, dep_f16)
+        out.append(FrameInput(image=img, depth=dep, pose=_to(pose, b.device),
+                              frame_index=_to(ref, b.device)))
+    return out
+
+
+def sharded_fuse_frame_windowed_packed(config: SurfelMapConfig, mesh: Mesh):
+    """sharded_fuse_frame_windowed over compact single-buffer frames (u8
+    intensity + f16 depth bytes, decoded on the device): the ingest
+    encoding of the single-device drivers, so sharded and dense runs see
+    the same frames.
+
+    Call: (banks, bufs (B, 3HW) u8, poses (B,4,4) f32, refs (B,) i32,
+    masks (B, max_keyframes) bool) -> (banks, stats)."""
+    del mesh
+
+    def step(banks: ShardedBanks, bufs, poses, refs, masks):
+        return banks, _stack_streams([
+            _fuse_stream(config, row,
+                         _packed_frames(config, row, bufs[b], poses[b],
+                                        refs[b]),
+                         pose_masks=_replicate(masks[b], row))
+            for b, row in enumerate(banks.shards)])
+    return step
+
+
+def sharded_prior(config: SurfelMapConfig, stereo_config, row, poses):
+    """The matcher's map prior on every shard of one stream (None each
+    when the prior is off): each shard renders its own slab, and its
+    z-buffer is min-merged with the other shards' before the upsample (the
+    JAX package's `lax.pmin`; exact, so every shard gets the dense bank's
+    prior)."""
+    from ..ops.render import coarse_zbuffer
+    from ..pipeline.fuse_step import _stereo_prior
+    if not stereo_config.prior_rescue or stereo_config.hierarchical:
+        return [None] * len(row)
+    coarse = [coarse_zbuffer(config, b, p, stereo_config.prior_stride,
+                             stereo_config.prior_min_updates)
+              for b, p in zip(row, poses)]
+
+    def merge(s):
+        def reduce(local):
+            for o, c in enumerate(coarse):
+                if o != s:
+                    local = torch.minimum(local, _to(c, local.device))
+            return local
+        return reduce
+
+    return [_stereo_prior(config, stereo_config, b, poses[s],
+                          reduce=merge(s)) for s, b in enumerate(row)]
+
+
+def _stereo_stream(config, stereo_config, filter_depth, row, buf, pose,
+                   ref, bf, mask):
+    """The stereo-resident step of one stream: the matcher runs on every
+    shard's device (B5/B6 once per shard), with the merged map prior
+    (`sharded_prior`, the same depth on every shard), then the sharded
+    fuse."""
+    from ..pipeline.fuse_step import compute_depth_stereo, unpack_stereo
+    ph, pw = config.padded_height, config.padded_width
+    pad = (0, pw - config.width, 0, ph - config.height)
+    poses = _replicate(pose, row)
+    priors = sharded_prior(config, stereo_config, row, poses)
+    frames, rescued = [], None
+    for s, b in enumerate(row):
+        left, right = unpack_stereo(config, _to(buf, b.device))
+        depth, n_rescued = compute_depth_stereo(
+            config, stereo_config, left, right, _to(bf, b.device),
+            filter_depth, prior_depth=priors[s])
+        rescued = n_rescued if rescued is None else rescued
+        frames.append(FrameInput(
+            image=torch.nn.functional.pad(left, pad),
+            depth=torch.nn.functional.pad(depth, pad), pose=poses[s],
+            frame_index=_to(ref, b.device)))
+    stats = _fuse_stream(config, row, frames, pose_masks=(
+        None if mask is None else _replicate(mask, row)))
+    stats["n_rescued_px"] = _to(rescued, row[0].device)
+    return stats
+
+
+def sharded_fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
+                                              stereo_config,
+                                              filter_depth: bool,
+                                              mesh: Mesh):
+    """Stereo-resident windowed fuse over the mesh: the on-device stereo
+    front-end (`fuse_step.compute_depth_stereo`) runs replicated per surfel
+    shard, then the sharded windowed fuse.
+
+    Call: (banks, bufs (B, 2HW) u8, poses (B,4,4), refs (B,), bfs (B,)
+    f32, masks (B, max_keyframes)) -> (banks, stats)."""
+    del mesh
+
+    def step(banks: ShardedBanks, bufs, poses, refs, bfs, masks):
+        return banks, _stack_streams([
+            _stereo_stream(config, stereo_config, filter_depth, row,
+                           bufs[b], poses[b], refs[b], bfs[b], masks[b])
+            for b, row in enumerate(banks.shards)])
+    return step
+
+
+def sharded_fuse_frame_stereo(config: SurfelMapConfig, stereo_config,
+                              filter_depth: bool, mesh: Mesh):
+    """Stereo-resident fuse without the window mask (the host-pool sharded
+    driver); the same replicated front-end.
+
+    Call: (banks, bufs (B, 2HW) u8, poses, refs, bfs) -> (banks, stats)."""
+    del mesh
+
+    def step(banks: ShardedBanks, bufs, poses, refs, bfs):
+        return banks, _stack_streams([
+            _stereo_stream(config, stereo_config, filter_depth, row,
+                           bufs[b], poses[b], refs[b], bfs[b], None)
+            for b, row in enumerate(banks.shards)])
+    return step
+
+
+# ----------------------------------------------------------------------
+# bank lifecycle: every (stream, shard) works on its own rows
+# ----------------------------------------------------------------------
+def sharded_warp_by_pose(config: SurfelMapConfig, mesh: Mesh):
+    """Whole-bank per-pose loop warp over the mesh (`warp_bank_by_pose` on
+    every shard, in place).  Call: (banks, warps (B,P,4,4), moved (B,P),
+    masks (B,P), firsts (B,)) -> banks."""
+    del config, mesh
+
+    def warp(banks: ShardedBanks, warps, moved, masks, firsts):
+        for b, row in enumerate(banks.shards):
+            for bank in row:
+                d = bank.device
+                warp_ops.warp_bank_by_pose(bank, _to(warps[b], d),
+                                           _to(moved[b], d),
+                                           _to(masks[b], d),
+                                           _to(firsts[b], d))
+        return banks
+    return warp
+
+
+def sharded_compact(config: SurfelMapConfig, mesh: Mesh):
+    """Per-shard hole elimination, in place: compaction never crosses a
+    shard boundary, so no collective is needed."""
+    del config, mesh
+
+    def compact(banks: ShardedBanks):
+        for row in banks.shards:
+            for bank in row:
+                fusion.compact_bank(bank)
+        return banks
+    return compact
+
+
+def sharded_extract_by_pose(config: SurfelMapConfig, mesh: Mesh,
+                            buffer_size: int):
+    """Sharded active -> inactive extract: each (stream, shard) matches the
+    removed pose ids against its own rows into its slice of a
+    (B, n_shards * buffer_size) buffer.
+
+    Call: (banks, pose_ids (MAX_REMOVE_POSES,)) -> (banks, buffers dict,
+    counts (B, n_shards)), the buffers and counts on the device of stream
+    0's first shard.  The union of the shards' buffers is the
+    single-device extraction."""
+    from ..ops.migration import extract_by_pose
+    del config, mesh
+
+    def extract(banks: ShardedBanks, pose_ids: torch.Tensor):
+        dev = banks.shards[0][0].device
+        bufs = {k: [] for k in FIELDS}
+        ns = []
+        for row in banks.shards:
+            ns_row = []
+            for bank in row:
+                buf, n = extract_by_pose(bank, _to(pose_ids, bank.device),
+                                         buffer_size)
+                for k in FIELDS:
+                    bufs[k].append(_to(buf[k], dev))
+                ns_row.append(_to(n, dev))
+            ns.append(torch.stack(ns_row))
+        b = banks.n_streams
+        return banks, {k: torch.cat(v).view((b, -1) + v[0].shape[1:])
+                       for k, v in bufs.items()}, torch.stack(ns)
+    return extract
+
+
+def sharded_append(config: SurfelMapConfig, mesh: Mesh, per_buf: int):
+    """Sharded host-slab append (pool re-activation): each (stream, shard)
+    tail-appends its slice of a round-robin-distributed slab.
+
+    Call: (banks, fields dict (B, n_shards * per_buf, ...), ns (B,
+    n_shards)) -> banks."""
+    del config, mesh
+
+    def append(banks: ShardedBanks, fields: dict, ns: torch.Tensor):
+        for b, row in enumerate(banks.shards):
+            for s, bank in enumerate(row):
+                d = bank.device
+                part = {k: _to(v[b, s * per_buf:(s + 1) * per_buf], d)
+                        for k, v in fields.items()}
+                mask = torch.arange(per_buf, device=d) < _to(ns[b, s], d)
+                fusion.append_new(bank, part, mask)
+        return banks
+    return append
+
+
+def sharded_warp_active(config: SurfelMapConfig, mesh: Mesh):
+    """Loop-closure warp of every bank row (one matrix per stream), in
+    place: elementwise per shard, no collectives.  Call: (banks, warps
+    (B,4,4)) -> banks."""
+    del config, mesh
+
+    def warp(banks: ShardedBanks, warps: torch.Tensor):
+        for b, row in enumerate(banks.shards):
+            for bank in row:
+                warp_ops.warp_active(bank, _to(warps[b], bank.device))
+        return banks
+    return warp

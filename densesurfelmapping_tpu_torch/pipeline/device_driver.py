@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import SurfelMapConfig
-from ..core.state import (bank_to_numpy, pack_aux, pack_frame_with_aux,
+from ..core.state import (FIELDS, pack_aux, pack_frame_with_aux,
                           pack_stereo_with_aux)
 from ..ops import warp as warp_ops
 from . import fuse_step
@@ -121,11 +121,7 @@ class DeviceResidentMapping(SurfelMapping):
             self._flush_pending()   # fuse order = feed order
             with self.timer.stage("pack"):
                 buf = pack_stereo_with_aux(self.config, depth.buf, aux)
-            with self.timer.stage("dispatch"):
-                _, stats = fuse_step.fuse_frame_stereo_onebuf(
-                    self.config, self._stereo_cfg, self._stereo_filter,
-                    self.bank, self._upload(buf))
-            self._fused(stats)
+            self._fuse_stereo_packed(buf)
             return
         if self._pipelined:
             # submit THIS frame's pack to the worker, then run the PREVIOUS
@@ -143,6 +139,13 @@ class DeviceResidentMapping(SurfelMapping):
         with self.timer.stage("dispatch"):
             _, stats = fuse_step.fuse_frame_onebuf(self.config, self.bank,
                                                    self._upload(buf))
+        self._fused(stats)
+
+    def _fuse_stereo_packed(self, buf: np.ndarray) -> None:
+        with self.timer.stage("dispatch"):
+            _, stats = fuse_step.fuse_frame_stereo_onebuf(
+                self.config, self._stereo_cfg, self._stereo_filter,
+                self.bank, self._upload(buf))
         self._fused(stats)
 
     def _fused(self, stats) -> None:
@@ -187,11 +190,15 @@ class DeviceResidentMapping(SurfelMapping):
         n = len(warps)
         wstack[:n] = warps.astype(np.float32)
         mstack[:n] = moved
+        self._apply_pose_warp(wstack, mstack)
+        self._host_rows = None
+        self.graph.commit_loop_poses()
+
+    def _apply_pose_warp(self, wstack: np.ndarray,
+                         mstack: np.ndarray) -> None:
         warp_ops.warp_bank_by_pose(
             self.bank, self._to_device(wstack), self._to_device(mstack),
             self._to_device(self._window_np), self._first_local)
-        self._host_rows = None
-        self.graph.commit_loop_poses()
 
     # ------------------------------------------------------------------
     # readouts: one bank transfer, split by the window mask
@@ -199,7 +206,7 @@ class DeviceResidentMapping(SurfelMapping):
     def _rows_host(self) -> dict:
         self._flush_pending()
         if self._host_rows is None:
-            self._host_rows = bank_to_numpy(self.bank)
+            self._host_rows = self._bank_host()
         return self._host_rows
 
     def _is_active_row(self, rows: dict) -> np.ndarray:
@@ -260,3 +267,91 @@ class DeviceResidentMapping(SurfelMapping):
             if self.local_indices else 0
         self._host_rows = None
 
+
+
+class ShardedDeviceResidentMapping(DeviceResidentMapping):
+    """DeviceResidentMapping over a device mesh: the window-mask lifecycle
+    (no steady-state readbacks) with the bank split in row slabs over the
+    mesh's "surfel" axis (`parallel/sharding.py`).
+
+    Each frame's payload is the dense driver's one packed buffer, uploaded
+    once and decoded on the device, so sharded and dense drives fuse the
+    same frames; fuse, loop warp and compaction run on every shard.
+    frame_sharded=True splits the superpixel/plane-fit stage by image
+    columns over the shards (`parallel/frame_sharding.py`); the map is the
+    same either way.  Stats stay on the device; the bank's count is read
+    only by the readouts."""
+
+    def __init__(self, config: SurfelMapConfig, mesh,
+                 kitti_alignment: bool = False, frame_sharded: bool = False):
+        from ..parallel import frame_sharding, sharding
+        if mesh.shape["data"] != 1:
+            raise ValueError("one session per data row")
+        self.mesh = mesh
+        self.n_shards = mesh.shape["surfel"]
+        self.frame_sharded = bool(frame_sharded)
+        super().__init__(config, kitti_alignment, device=mesh.device(0, 0))
+        self.bank = sharding.replicate_banks(mesh, config, n_streams=1)
+        if self.frame_sharded:
+            self._sfuse_wp = \
+                frame_sharding.sharded_fuse_frame_framestage_windowed_packed(
+                    config, mesh)
+        else:
+            self._sfuse_wp = sharding.sharded_fuse_frame_windowed_packed(
+                config, mesh)
+        self._scompact = sharding.sharded_compact(config, mesh)
+        self._swarp = sharding.sharded_warp_by_pose(config, mesh)
+
+    def _payload(self, buf: np.ndarray, frame_bytes: int):
+        from ..parallel.multistream import unpack_payload
+        return unpack_payload(self._upload(buf)[None], frame_bytes)
+
+    def _fuse_packed(self, buf: np.ndarray) -> None:
+        with self.timer.stage("dispatch"):
+            frames, poses, refs, _, masks = self._payload(
+                buf, 3 * self.config.height * self.config.width)
+            _, stats = self._sfuse_wp(self.bank, frames, poses, refs, masks)
+        self._fused(stats)
+
+    def _fuse_stereo_packed(self, buf: np.ndarray) -> None:
+        from ..parallel import sharding
+        with self.timer.stage("dispatch"):
+            frames, poses, refs, bfs, masks = self._payload(
+                buf, 2 * self.config.height * self.config.width)
+            step = sharding.sharded_fuse_frame_stereo_windowed_packed(
+                self.config, self._stereo_cfg, self._stereo_filter,
+                self.mesh)
+            _, stats = step(self.bank, frames, poses, refs, bfs, masks)
+        self._fused(stats)
+
+    def _do_compact(self) -> None:
+        self._scompact(self.bank)
+        self.compactions += 1
+
+    def _bank_count(self) -> int:
+        return int(self.bank.counts().sum())
+
+    def _bank_capacity(self) -> int:
+        return self.n_shards * self.bank.rows_per_shard
+
+    def _apply_pose_warp(self, wstack: np.ndarray,
+                         mstack: np.ndarray) -> None:
+        self._swarp(self.bank, self._to_device(wstack[None]),
+                    self._to_device(mstack[None]),
+                    self._to_device(self._window_np[None]),
+                    self._to_device(np.full(1, self._first_local, np.int64)))
+
+    def _bank_host(self) -> dict:
+        from .sharded_driver import gather_sharded_bank
+        return gather_sharded_bank(self.bank, self.n_shards)
+
+    def memory_usage_kb(self) -> float:
+        return self.bank.nbytes() / 1024.0
+
+    # save_checkpoint is inherited (dense gathered rows, `_bank_host`);
+    # a checkpoint's rows load round-robin over the shards
+    def _load_bank(self, z) -> None:
+        from .sharded_driver import scatter_rows_to_sharded
+        n = int(z["bank_count"])
+        self.bank = scatter_rows_to_sharded(
+            self.config, self.mesh, {k: z[f"bank_{k}"][:n] for k in FIELDS})

@@ -281,19 +281,53 @@ class SurfelMapping:
         """Repack the bank when dead holes exceed the slack or the tail
         lacks headroom for the frames until the next stats sync."""
         st = self.last_stats
-        count = int(self.bank.count)
+        count = self._bank_count()
         live = st.get("n_live", 0) + st.get("n_new", 0)
         slab = self.config.new_capacity
         margin = (self.config.stats_interval + 1) * slab \
             + self.config.migration_buffer
-        need_room = count > self.bank.capacity - margin
+        need_room = count > self._bank_capacity() - margin
         if (count - live > self.config.compaction_slack) or need_room \
                 or st.get("n_dropped", 0) > 0:
             self._do_compact()
 
+    # ------------------------------------------------------------------
+    # device-bank seams (the sharded drivers override them)
+    # ------------------------------------------------------------------
+    def _bank_count(self) -> int:
+        return int(self.bank.count)
+
+    def _bank_capacity(self) -> int:
+        return self.bank.capacity
+
     def _do_compact(self) -> None:
         fusion.compact_bank(self.bank)
         self.compactions += 1
+
+    def _extract_chunk(self, ids: np.ndarray):
+        """One removed-pose extraction pass; returns (host fields, n)."""
+        buf, n = migration.extract_by_pose(
+            self.bank, self._to_device(ids), self.config.migration_buffer)
+        n = int(n)
+        if n == 0:
+            return {}, 0
+        return {k: v[:n].cpu().numpy() for k, v in buf.items()}, n
+
+    def _append_hostslab(self, padded: dict, n: int) -> None:
+        """Tail-append the first n rows of a migration_buffer-row host
+        slab."""
+        mask = torch.arange(self.config.migration_buffer,
+                            device=self.device) < n
+        fusion.append_new(self.bank, {k: self._to_device(v)
+                                      for k, v in padded.items()}, mask)
+
+    def _apply_active_warp(self, warp: np.ndarray) -> None:
+        warp_ops.warp_active(self.bank, self._to_device(
+            np.asarray(warp, np.float32)))
+
+    def _bank_host(self) -> dict:
+        """Host copy of the bank's allocated rows."""
+        return bank_to_numpy(self.bank)
 
     # ------------------------------------------------------------------
     # active window migration (reference: move_add_surfels)
@@ -310,12 +344,9 @@ class SurfelMapping:
                 ids = np.full(migration.MAX_REMOVE_POSES, -1, np.int32)
                 ids[:len(chunk)] = chunk
                 while True:
-                    buf, n = migration.extract_by_pose(
-                        self.bank, self._to_device(ids), buf_size)
-                    n = int(n)
+                    host, n = self._extract_chunk(ids)
                     if n == 0:
                         break
-                    host = {k: v[:n].cpu().numpy() for k, v in buf.items()}
                     for pose_id in chunk:
                         sel = host["last_update"] == pose_id
                         if sel.any():
@@ -331,7 +362,7 @@ class SurfelMapping:
             self.local_indices |= set(to_add)
             slab = self.pool.detach(to_add)
             m = len(slab["color"])
-            if int(self.bank.count) > self.bank.capacity - buf_size:
+            if self._bank_count() > self._bank_capacity() - buf_size:
                 self._do_compact()
             for off in range(0, m, buf_size):
                 part = {k: v[off:off + buf_size] for k, v in slab.items()}
@@ -341,9 +372,8 @@ class SurfelMapping:
                     arr = np.zeros((buf_size,) + part[k].shape[1:],
                                    part[k].dtype)
                     arr[:n] = part[k]
-                    padded[k] = self._to_device(arr)
-                mask = torch.arange(buf_size, device=self.device) < n
-                fusion.append_new(self.bank, padded, mask)
+                    padded[k] = arr
+                self._append_hostslab(padded, n)
 
     # ------------------------------------------------------------------
     # loop-closure warp (reference: warp_surfels)
@@ -361,8 +391,7 @@ class SurfelMapping:
         if self.local_indices:
             first = min(self.local_indices)
             if first < len(moved) and moved[first]:
-                warp_ops.warp_active(self.bank, self._to_device(
-                    warps[first].astype(np.float32)))
+                self._apply_active_warp(warps[first])
         self.pool.warp(warps, moved, self._warp_pool_np)
         self.graph.commit_loop_poses()
 
@@ -375,7 +404,7 @@ class SurfelMapping:
         save_cloud gating)."""
         if min_updates is None:
             min_updates = self.config.stable_update_times
-        rows = bank_to_numpy(self.bank)
+        rows = self._bank_host()
         sel = rows["update_times"] >= min_updates
         return {k: v[sel] for k, v in rows.items()}
 
@@ -462,7 +491,7 @@ class SurfelMapping:
         out: Dict[str, float] = {
             "frames_fused": self.frames_fused,
             "keyframes": len(self.graph),
-            "active_count": int(self.bank.count),
+            "active_count": self._bank_count(),
             "inactive_count": len(self.pool),
             "buffered_images": len(self.image_buffer),
             "buffered_depths": len(self.depth_buffer),
@@ -522,7 +551,7 @@ class SurfelMapping:
     def save_checkpoint(self, path: str) -> None:
         """Bank, pose graph and host pool as one .npz (the JAX package's
         format)."""
-        data = {f"bank_{k}": v for k, v in bank_to_numpy(self.bank).items()}
+        data = {f"bank_{k}": v for k, v in self._bank_host().items()}
         data["bank_count"] = np.int64(len(data["bank_color"]))
         data.update(self._graph_arrays())
         data["pool_keys"] = np.array(sorted(self.pool.slabs), np.int64)

@@ -88,6 +88,26 @@ def unpack_frame(config: SurfelMapConfig, buf: torch.Tensor):
     return img, dep
 
 
+def fuse_frame_packed(config: SurfelMapConfig, bank: SurfelBank,
+                      buf: torch.Tensor, pose: torch.Tensor,
+                      frame_index: torch.Tensor) -> Tuple[SurfelBank, dict]:
+    """fuse_frame over a single-buffer packed frame (`core.state.pack_frame`,
+    one host-to-device copy)."""
+    img, dep = unpack_frame(config, buf)
+    return fuse_frame_compact(config, bank, img, dep, pose, frame_index)
+
+
+def fuse_frame_windowed_packed(config: SurfelMapConfig, bank: SurfelBank,
+                               buf: torch.Tensor, pose: torch.Tensor,
+                               frame_index: torch.Tensor,
+                               pose_mask: torch.Tensor
+                               ) -> Tuple[SurfelBank, dict]:
+    """Windowed fuse step over a single-buffer packed frame."""
+    img, dep = unpack_frame(config, buf)
+    return fuse_frame_windowed(config, bank, img, dep, pose, frame_index,
+                               pose_mask)
+
+
 def fuse_frame_windowed(config: SurfelMapConfig, bank: SurfelBank,
                         image_u8: torch.Tensor, depth_f16: torch.Tensor,
                         pose: torch.Tensor, frame_index: torch.Tensor,
@@ -179,18 +199,19 @@ def compute_depth_stereo(config: SurfelMapConfig, stereo_config,
 
 
 def _stereo_prior(config: SurfelMapConfig, stereo_config, bank: SurfelBank,
-                  pose: torch.Tensor, axis_name: str | None = None):
+                  pose: torch.Tensor, reduce=None):
     """Map-rendered depth prior for the matcher's rescue gate, or None (off
     unless stereo_config.prior_rescue, and in hierarchical mode, whose
     matcher ignores it).  Rendered from the bank before this frame's
-    update."""
+    update; `reduce`: the sharded banks' z-buffer merge
+    (`ops/render.render_prior_depth`)."""
     if not stereo_config.prior_rescue or stereo_config.hierarchical:
         return None
     from ..ops.render import render_prior_depth
     return render_prior_depth(config, bank, pose,
                               stride=stereo_config.prior_stride,
                               min_updates=stereo_config.prior_min_updates,
-                              axis_name=axis_name)
+                              reduce=reduce)
 
 
 def fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
@@ -248,6 +269,117 @@ def fuse_frame_stereo_onebuf(config: SurfelMapConfig, stereo_config,
     return fuse_frame_stereo_windowed_aux(config, stereo_config,
                                           filter_depth, bank, buf[:hw2],
                                           buf[hw2:])
+
+
+# ----------------------------------------------------------------------
+# batch replay: many frames per call (the JAX package's lax.scan paths)
+# ----------------------------------------------------------------------
+def fuse_frames_scan(config: SurfelMapConfig, bank: SurfelBank,
+                     images_u8: torch.Tensor, depths_f16: torch.Tensor,
+                     poses: torch.Tensor, frame_indices: torch.Tensor
+                     ) -> Tuple[SurfelBank, dict]:
+    """Fuse a chunk of compact frames (leading axis N, resident on the
+    bank's device) in order: N successive `fuse_frame_compact` calls.
+    Returns (bank updated in place, stats stacked (N,) per frame).
+
+    The JAX package also has `jitted_compact`, a donated jit of
+    `compact_bank`; the port needs none: `fusion.compact_bank` repacks the
+    bank in place."""
+    per_frame = [fuse_frame_compact(config, bank, images_u8[i],
+                                    depths_f16[i], poses[i],
+                                    frame_indices[i])[1]
+                 for i in range(images_u8.shape[0])]
+    return bank, {k: torch.stack([st[k] for st in per_frame])
+                  for k in per_frame[0]}
+
+
+def fuse_frames_looped(config: SurfelMapConfig, n_loops: int,
+                       bank: SurfelBank, images_u8: torch.Tensor,
+                       depths_f16: torch.Tensor, poses: torch.Tensor
+                       ) -> Tuple[SurfelBank, torch.Tensor]:
+    """Fuse K stacked compact frames `n_loops` times: step t fuses frame
+    t mod K with frame index t.  Returns (bank updated in place, the
+    (n_loops * K,) i32 trace of the bank's count after each step).
+
+    A looped replay of the trajectory for device-throughput measurement:
+    later laps fuse against a larger map.  On a CUDA bank one lap is
+    captured into a CUDA graph (`LapGraph`) and replayed n_loops times,
+    then the call waits for the last replay: one enqueue per lap and one
+    fence, where the JAX package runs one `lax.scan` program.  A CUDA bank
+    replays the graph or raises; on a CPU bank the same steps run eagerly."""
+    k = images_u8.shape[0]
+    if bank.device.type == "cuda":
+        lap = LapGraph(config, bank, images_u8, depths_f16, poses, n_loops)
+        for _ in range(n_loops):
+            lap.replay()
+        # the one fence: the graph (and its memory pool) must outlive its
+        # replays
+        torch.cuda.current_stream(bank.device).synchronize()
+        return bank, lap.trace
+    trace = []
+    for t in range(n_loops * k):
+        i = t % k
+        fuse_frame_compact(config, bank, images_u8[i], depths_f16[i],
+                           poses[i], torch.tensor(t, dtype=torch.int32))
+        trace.append(bank.count.clone())
+    return bank, torch.stack(trace)
+
+
+class LapGraph:
+    """One lap of `fuse_frames_looped` (K compact fuse steps over a
+    device-resident frame stack) captured into a `torch.cuda.CUDAGraph`.
+
+    The lap writes the bank in place (its tensors keep their addresses), so
+    each `replay()` continues the map of the one before.  The frame index
+    is a device counter the graph itself advances, and captured copies
+    write the bank's count after each step into `trace` ((n_loops * K,)
+    i32): nothing is uploaded between replays.  Inside the capture nothing
+    synchronises or uploads from pageable memory; every lazily built
+    object (geometry planes, library handles, the kernel libraries) is
+    built first by a warm-up lap on a scratch copy of the bank."""
+
+    def __init__(self, config: SurfelMapConfig, bank: SurfelBank,
+                 images_u8: torch.Tensor, depths_f16: torch.Tensor,
+                 poses: torch.Tensor, n_loops: int):
+        dev = bank.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
+        self.n_loops = n_loops
+        self.replays = 0
+        k = images_u8.shape[0]
+        counter = torch.zeros((), dtype=torch.int32, device=dev)
+        self.trace = torch.zeros(n_loops * k, dtype=torch.int32, device=dev)
+
+        def lap(target: SurfelBank) -> None:
+            for i in range(k):
+                fuse_frame_compact(config, target, images_u8[i],
+                                   depths_f16[i], poses[i], counter)
+                self.trace.index_copy_(0, counter.long().view(1),
+                                       target.count.view(1))
+                counter.add_(1)
+
+        scratch = SurfelBank(**{f: getattr(bank, f).clone()
+                                for f in bank.__dataclass_fields__})
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            lap(scratch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch
+        counter.zero_()
+        self.trace.zero_()
+
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            lap(bank)
+
+    def replay(self) -> None:
+        """Enqueue one lap.  The trace has room for n_loops laps: a
+        further replay would index past it, so it raises."""
+        if self.replays >= self.n_loops:
+            raise RuntimeError(f"the trace holds {self.n_loops} laps")
+        self.replays += 1
+        self.graph.replay()
 
 
 def segmentation_only(config: SurfelMapConfig, image: torch.Tensor,

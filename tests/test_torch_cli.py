@@ -218,7 +218,7 @@ def test_cli_device_cuda_raises_without_card(tmp_path):
 
 REQUIRED = {"synthetic": [], "stress": [], "kitti": ["--root", "r"],
             "tum": ["--root", "r"], "replay": ["--feed", "f"], "multi": [],
-            "serve": [], "publish": []}
+            "serve": [], "publish": [], "diagnose": []}
 
 
 @pytest.mark.parametrize("cmd", sorted(REQUIRED))
@@ -238,12 +238,29 @@ def test_cli_flags_match_jax(monkeypatch, cmd):
     assert port == want
 
 
-def test_cli_serving_commands_not_registered():
-    # multi, serve and publish are ported; diagnose is not yet
-    for cmd in ("diagnose",):
-        with pytest.raises(SystemExit) as e:
-            tcli.main([cmd])
-        assert e.value.code == 2
+def test_cli_diagnose_runs_on_cpu(monkeypatch, capsys):
+    """`diagnose --device cpu` prints one JSON line with the JAX package's
+    keys (the fuse probe on the 120 x 56 camera)."""
+    from densesurfelmapping_tpu_torch import config as tcfg
+    from densesurfelmapping_tpu_torch.utils import diagnostics
+    cfg = tcfg.SurfelMapConfig.from_json(SurfelMapConfig(
+        camera=CAM_120, surfel_capacity=8192).to_json())
+    monkeypatch.setattr(diagnostics, "default_config", lambda: cfg)
+    assert tcli.main(["diagnose", "--device", "cpu",
+                      "--fuse-frames", "2"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert set(got) == {"backend", "dispatch_ms", "h2d_mbps", "fuse_ms",
+                        "block_lies", "healthy"}
+    assert got["backend"] == "cpu" and got["block_lies"] is False
+
+
+def test_cli_diagnose_cuda_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        tcli.main(["diagnose"])
 
 
 @pytest.mark.parametrize("flags", [

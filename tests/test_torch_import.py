@@ -39,7 +39,10 @@ def test_port_imports_without_jax():
     for name in ("cli", "__main__", "eval.fidelity", "native.loader",
                  "io.export", "io.png", "io.kitti", "io.tum", "io.posefeed",
                  "io.stressfeed", "viz", "io.bridge", "parallel.multistream",
-                 "pipeline.multi_session"):
+                 "pipeline.multi_session", "utils.cache", "utils.diagnostics",
+                 "parallel.sharding", "parallel.frame_sharding",
+                 "parallel.sgm_sharding", "pipeline.sharded_driver",
+                 "entry"):
         assert f"densesurfelmapping_tpu_torch.{name}" in res["modules"], name
     assert not res["jax"]
     assert not res["reference"]

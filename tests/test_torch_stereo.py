@@ -216,5 +216,9 @@ def test_render_prior_depth_matches_jax(scenario):
     np.testing.assert_array_equal(got.numpy(), want)
     if scenario == "zbuffer":
         assert float(got[16:24, 32:40].max()) == pytest.approx(3.0)
-    with pytest.raises(NotImplementedError):
-        trender(tc, tb, torch.from_numpy(pose), axis_name="surfel")
+    # the sharded banks' hook: merging with an empty shard's z-buffer (all
+    # inf) changes nothing
+    merged = trender(tc, tb, torch.from_numpy(pose), stride=8, min_updates=5,
+                     reduce=lambda c: torch.minimum(
+                         c, torch.full_like(c, float("inf"))))
+    assert torch.equal(merged, got)
