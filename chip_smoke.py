@@ -21,10 +21,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
                whole disparity map with and without the kernels, B5's
                occupancy (its launch is cooperative), and the time per
                launch of kernel and twin (B4's two families apart)
-  5. drive   - depth-fed DeviceResidentMapping over 60 KITTI-size frames,
-               steady state under torch.cuda.set_sync_debug_mode("error"):
-               launch counts, no NaN, the ground-plane gate, compaction, the
-               loop warp
+  5. drive   - depth-fed DeviceResidentMapping over 60 KITTI-size frames
+               (the fuse step replayed from a captured CUDA graph), the
+               steady feed after the first frame under
+               torch.cuda.set_sync_debug_mode("error"): launch counts, no
+               NaN, the ground-plane gate, compaction, the loop warp
   6. rate    - frames/s of the depth-fed drive, unpipelined and pipelined
   7. stereo  - stereo-resident DeviceResidentMapping (the CLI's synthetic
                --stereo --sgm flow) over 30 KITTI-size pairs under the sync
@@ -32,27 +33,36 @@ Phases (each prints a line; any failure raises and exits non-zero):
                check against the rendered depth, the peak device memory; the
                fused-census, plain and materialized-volume (B4) matchers build
                the same map, and the materialized drive's peak memory
-  8. multi-kernels - B1-B3 with the stream axis: over every run_slic sweep
+  8. graph   - the drivers' captured steps (fuse_step.StepGraph) against
+               eager references of the same drivers: B5 captured alone keeps
+               its cooperative attribute; the depth-fed (60 frames) and
+               stereo (30 pairs) drives under the sync check after the first
+               frame, a drive recapturing as max_keyframes grows 4 -> 16, a
+               drive resumed from a checkpoint mid-drive and the 4-stream
+               fleet, each torch.equal to its eager twin; frames/s graphed
+               vs eager (median of 3), host ms by stage, device busy/idle and
+               operations per frame, capture ms and graph memory
+  9. multi-kernels - B1-B3 with the stream axis: over every run_slic sweep
                of 4 distinct KITTI frames (and 3 frames of 120 x 56 at sp 6
                and 16) one launch for all streams, each stream equal to the
                single-frame kernel (torch.equal) and to the plain twin;
                device us per launch at B = 1 and B = 4
-  9. multi   - MultiSessionMapping, 4 streams at the CLI's width (capacity
+ 10. multi   - MultiSessionMapping, 4 streams at the CLI's width (capacity
                2^21) over 24 rounds under the sync check: each SLIC kernel
                3x per round (not x B), no NaN, compaction, each session equal
                to a solo DeviceResidentMapping (1e-5 m), a loop warp of
                session 0 moving it alone, pipelined == eager; aggregate
                frames/s at B = 1, 2, 4, device ms, ops and idle share per
                round, peak device memory
- 10. multi-stereo - 2 stereo streams x 8 rounds (--sgm): B5/B6 once per
+ 11. multi-stereo - 2 stereo streams x 8 rounds (--sgm): B5/B6 once per
                stream and round, maps equal to solo stereo drives (1e-4 m)
- 11. batch   - fuse_frames_scan over 8 KITTI frames against 8 eager steps
+ 12. batch   - fuse_frames_scan over 8 KITTI frames against 8 eager steps
                (torch.equal); fuse_frames_looped (K = 8, 8 laps: one lap
                captured in a CUDA graph and replayed) against the eager
                loop (trace and bank torch.equal), each SLIC kernel 3x per
                step in the profiler's records; the replay's device frames/s
                beside the eager loop's, and the call's peak memory
- 12. sharded - ShardedDeviceResidentMapping on a (1, 2) mesh of this card
+ 13. sharded - ShardedDeviceResidentMapping on a (1, 2) mesh of this card
                (2 virtual shards), 24 frames under the sync check,
                replicated (SLIC 3x per frame per shard) and frame-sharded
                (the slabs run the plain SLIC functions), and stereo over 4
@@ -60,7 +70,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
                dense DeviceResidentMapping (1e-4 m), a loop warp, frames/s
                of each; sharded_sgm_disparity on 2 shards (a 61 x 97 crop
                and KITTI size) equal to the replicated plain disparity
- 13. cli     - the port's CLI in this process (cli.main, --device cuda) on
+ 14. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
                (the seven outputs, MAE < 0.3 m, 3 SLIC launches of each
@@ -78,17 +88,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
                over a CUDA DeviceResidentMapping equal to a direct feed
                (1e-5 m), and diagnose --fuse-frames 15 (every key,
                backend cuda, block_lies false); writes under build/cli/
- 14. profile - device ms/frame of the stereo drive by fuse-step scope and
-               of the SGM and SLIC kernels
-A kernel's time is its device time from the profiler's records of that
-kernel (`kernel_time`), printed beside the wrapper's host time per call; a
-plain twin's is CUDA events around its calls.  The last lines are the
+ 15. profile - device ms/frame of the stereo drive by fuse-step scope and
+               of the SGM and SLIC kernels (the eager reference: a graph
+               replay enters no profiler scope)
+A replayed graph launches its kernels without calling their wrappers: the
+launch checks of graphed runs read the profiler's kernel records beside the
+wrappers' counts (`executed`, `check_runs`).  A kernel's time is its device
+time from the profiler's records of that kernel (`kernel_time`), printed
+beside the wrapper's host time per call; a plain twin's is CUDA events
+around its calls.  The last lines are the
 {"kernels": [...]} JSON, the nvidia-smi line, and the JSON object
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -633,36 +649,58 @@ def make_frames(config, n_frames: int):
     return [scene.render(config, p) + (p,) for p in poses]
 
 
-def drive(config, frames, device, pipelined: bool, sync_checked: bool):
-    """Feed the frames through DeviceResidentMapping (keyframe every 2nd
-    frame); returns (driver, frames/s to a device synchronize)."""
+def drive(config, frames, device, pipelined: bool, sync_checked: bool,
+          cls=None):
+    """Feed the frames through DeviceResidentMapping (or `cls`, e.g. the
+    eager reference of `eager_classes`; keyframe every 2nd frame); returns
+    (driver, steady frames/s, `feed`)."""
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping)
-    drv = DeviceResidentMapping(config, device=device, pipelined=pipelined)
+    drv = (cls or DeviceResidentMapping)(config, device=device,
+                                         pipelined=pipelined)
     fps = feed(drv, frames, sync_checked)
     drv.close()
     return drv, fps
 
 
-def feed(drv, frames, sync_checked: bool) -> float:
-    """Feed depth frames to a driver (keyframe every 2nd frame), under the
-    sync check if asked (any host-device synchronisation in the steady
-    feed raises); frames/s to a device synchronize."""
+def steady(first, rest, flush, sync_checked: bool, n: int) -> float:
+    """first(), then rest() under the sync check if asked (any host-device
+    synchronisation there raises), flush() after each: the first frame or
+    round captures the driver's step, which synchronises like a jit's first
+    call, so the steady feed starts after it.  Returns the frames/s of
+    rest() (n frames) to a device synchronize."""
+    first()
+    flush()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if sync_checked:
         torch.cuda.set_sync_debug_mode("error")
     try:
-        for i, (img, dep, pose) in enumerate(frames):
-            drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
-            drv.feed_image(float(i), img)
-            drv.feed_depth(float(i), dep)
-        drv.flush()
+        rest()
+        flush()
     finally:
         if sync_checked:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return len(frames) / (time.perf_counter() - t0)
+    return n / (time.perf_counter() - t0)
+
+
+def feed(drv, frames, sync_checked: bool) -> float:
+    """Feed depth frames to a driver (keyframe every 2nd frame): the first
+    frame, then the steady feed under the sync check if asked; returns the
+    steady feed's frames/s (`steady`)."""
+    def one(i):
+        img, dep, pose = frames[i]
+        drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        drv.feed_image(float(i), img)
+        drv.feed_depth(float(i), dep)
+
+    def rest():
+        for i in range(1, len(frames)):
+            one(i)
+
+    return steady(lambda: one(0), rest, drv.flush, sync_checked,
+                  len(frames) - 1)
 
 
 def check_map(rows: dict, drv, ground_y: float) -> dict:
@@ -704,13 +742,14 @@ def make_pairs(config, n_frames: int):
     return [stereo_pair(config, p) + (p,) for p in poses]
 
 
-def drive_stereo(config, pairs, device, scfg, sync_checked: bool):
-    """Feed stereo pairs through DeviceResidentMapping with the on-device
-    matcher (keyframe every 2nd frame); returns (driver, frames/s to a
-    device synchronize)."""
+def drive_stereo(config, pairs, device, scfg, sync_checked: bool,
+                 cls=None):
+    """Feed stereo pairs through DeviceResidentMapping (or `cls`) with the
+    on-device matcher (keyframe every 2nd frame); returns (driver, steady
+    frames/s)."""
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping)
-    drv = DeviceResidentMapping(config, device=device)
+    drv = (cls or DeviceResidentMapping)(config, device=device)
     fps = feed_pairs(drv, pairs, scfg, sync_checked)
     drv.close()
     return drv, fps
@@ -718,23 +757,21 @@ def drive_stereo(config, pairs, device, scfg, sync_checked: bool):
 
 def feed_pairs(drv, pairs, scfg, sync_checked: bool) -> float:
     """enable_stereo (KITTI baseline) and feed stereo pairs to a driver as
-    `feed` feeds depth frames; frames/s to a device synchronize."""
+    `feed` feeds depth frames; returns the steady feed's frames/s."""
     drv.enable_stereo(bf=drv.config.camera.fx * BASELINE_M,
                       stereo_config=scfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if sync_checked:
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        for i, (li, ri, _, pose) in enumerate(pairs):
-            drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
-            drv.feed_stereo(float(i), li, ri)
-        drv.flush()
-    finally:
-        if sync_checked:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return len(pairs) / (time.perf_counter() - t0)
+
+    def one(i):
+        li, ri, _, pose = pairs[i]
+        drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        drv.feed_stereo(float(i), li, ri)
+
+    def rest():
+        for i in range(1, len(pairs)):
+            one(i)
+
+    return steady(lambda: one(0), rest, drv.flush, sync_checked,
+                  len(pairs) - 1)
 
 
 def depth_check(config, pair, device) -> tuple:
@@ -760,14 +797,12 @@ def same_bank(a: dict, b: dict) -> bool:
 
 
 def phase_stereo(device) -> tuple:
-    """The stereo-resident drive: returns the SGM launch counts of the
-    fused drive and of the materialized-branch drive, and the rendered
-    pairs."""
+    """The stereo-resident drive: returns the device runs of the kernels
+    in the fused drive and of B4 in the materialized-branch drive, and the
+    rendered pairs."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
     from densesurfelmapping_tpu_torch.io import synthetic
-    from densesurfelmapping_tpu_torch.ops.cuda import sgm as KS
-    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     scfg = sgm_config()
@@ -777,21 +812,19 @@ def phase_stereo(device) -> tuple:
         f"{time.perf_counter() - t0:.1f} s")
     drive_stereo(cfg, pairs[:2], device, scfg, sync_checked=False)
 
-    K.reset_launch_counts()
-    KS.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    drv, fps = drive_stereo(cfg, pairs, device, scfg, sync_checked=True)
+    (drv, fps), ex = executed(lambda: drive_stereo(cfg, pairs, device, scfg,
+                                                   sync_checked=True))
     peak = torch.cuda.max_memory_allocated()
-    slic_n, sgm_n = dict(K.LAUNCHES), dict(KS.LAUNCHES)
     say("stereo", f"peak device memory of the drive: {peak / 2**20:.1f} MiB "
-        f"(torch.cuda.max_memory_allocated)")
-    say("stereo", f"kernel launches in the drive: {sgm_n}, {slic_n}")
-    require(sgm_n["sgm_census_x"] == sgm_n["sgm_census_y"] == len(pairs)
-            and sgm_n["sgm_axis_scan"] == 0,
-            "stereo drive: B5/B6 not launched once per frame")
-    require(all(v == cfg.sp_iters * len(pairs) for v in slic_n.values()),
-            f"stereo drive: the SLIC kernels were not launched "
-            f"{cfg.sp_iters}x per frame")
+        f"(torch.cuda.max_memory_allocated; the graph's capture included)")
+    say("stereo", f"kernel launches in the drive: wrapper calls "
+        f"{ex['calls']}, device runs {ex['runs']} (profiler kernel "
+        f"records), {ex['captures']} graph captured")
+    require(ex["captures"] == 1, f"stereo drive: {ex['captures']} captures")
+    check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1, sgm_axis_scan=0,
+                        **{k: cfg.sp_iters for k in SLIC}),
+               len(pairs), "stereo drive")
     rows = bank_to_numpy(drv.bank)
     live = rows["update_times"] > 0
     require(live.sum() > 0, "stereo drive: the map is empty")
@@ -807,7 +840,7 @@ def phase_stereo(device) -> tuple:
         f"synchronize), {int(live.sum())} live surfels, {int(ground.sum())} "
         f"stable ground surfels with mean |y - ground| {gerr:.3e} m, "
         f"{drv.compactions} compactions; steady feed raised no host-device "
-        f"sync")
+        f"sync (frames/s of the steady feed under the profiler)")
 
     cov, err = depth_check(cfg, pairs[0], device)
     require(err <= DEPTH_REL_ERR_BOUND and cov >= DEPTH_COVERAGE_FLOOR,
@@ -819,22 +852,21 @@ def phase_stereo(device) -> tuple:
         f"{DEPTH_REL_ERR_BOUND})")
 
     # the first 4 frames: fused kernels, plain path, materialized branch
-    KS.reset_launch_counts()
-    fused, _ = drive_stereo(cfg, pairs[:4], device, scfg, False)
-    require(KS.LAUNCHES["sgm_census_x"] == 4, "fused drive: B6 count")
+    (fused, _), exf = executed(lambda: drive_stereo(cfg, pairs[:4], device,
+                                                    scfg, False))
+    check_runs(exf, dict(sgm_census_x=1), 4, "fused drive")
     plain, _ = drive_stereo(cfg, pairs[:4], device,
                             scfg._replace(sgm_pallas=False), False)
-    KS.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    mat, _ = drive_stereo(cfg, pairs[:4], device,
-                          scfg._replace(sgm_fused_census=False), False)
+    (mat, _), exm = executed(lambda: drive_stereo(
+        cfg, pairs[:4], device, scfg._replace(sgm_fused_census=False),
+        False))
     mat_peak = torch.cuda.max_memory_allocated()
-    mat_n = dict(KS.LAUNCHES)
-    say("stereo", f"materialized-branch drive, 4 pairs: launches {mat_n}; "
-        f"peak device memory {mat_peak / 2**20:.1f} MiB "
-        f"(torch.cuda.max_memory_allocated)")
-    require(mat_n["sgm_axis_scan"] == 8 and mat_n["sgm_census_x"] == 0,
-            "materialized drive: B4 not launched twice per frame")
+    say("stereo", f"materialized-branch drive, 4 pairs: wrapper calls "
+        f"{exm['calls']}, device runs {exm['runs']}; peak device memory "
+        f"{mat_peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+    check_runs(exm, dict(sgm_axis_scan=2, sgm_census_x=0, sgm_census_y=0),
+               4, "materialized drive (B4 twice per frame)")
     rf = bank_to_numpy(fused.bank)
     require(same_bank(rf, bank_to_numpy(plain.bank)),
             "fused-kernel and plain stereo maps differ")
@@ -843,7 +875,7 @@ def phase_stereo(device) -> tuple:
     say("stereo", f"4 pairs: fused census (B6+B5), plain twins and the "
         f"materialized volume (B4) build the same map "
         f"({int((rf['update_times'] > 0).sum())} live surfels)")
-    return dict(sgm_n, sgm_axis_scan=mat_n["sgm_axis_scan"]), pairs
+    return dict(ex["runs"], sgm_axis_scan=exm["runs"]["sgm_axis_scan"]), pairs
 
 
 CLI_DIR = "build/cli"
@@ -913,6 +945,106 @@ def counted(fn):
     return res, dict(K.LAUNCHES, **KS.LAUNCHES)
 
 
+# each wrapper's kernels, by the names of the profiler's kernel records
+KERNEL_RECORDS = {
+    "slic_assign": ("slic_assign_kernel",),
+    "slic_centroid": ("slic_centroid_kernel",),
+    "slic_huber": ("slic_huber_kernel",),
+    "sgm_axis_scan": ("axis_line_kernel", "axis_band_kernel",
+                      "scan_lines_kernel"),
+    "sgm_census_y": ("census_y_kernel",),
+    "sgm_census_x": ("census_x_kernel",)}
+
+
+def executed(fn):
+    """fn() under the profiler, with every kernel count and the count of
+    captured graphs set to 0 just before and read just after.  Returns
+    (fn's result, {"calls": each wrapper's launches, "runs": each kernel's
+    device runs by the profiler's kernel records, "captures": graphs
+    captured}).  A captured step calls each wrapper twice per capture (the
+    warm-up and the capture itself) and never again: its replays launch the
+    kernels from the graph, and only the profiler sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    FS.CAPTURES["graphs"] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, calls = counted(fn)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.is_user_annotation]
+    runs = {k: sum(any(p in n for p in parts) for n in names)
+            for k, parts in KERNEL_RECORDS.items()}
+    return res, dict(calls=calls, runs=runs,
+                     captures=FS.CAPTURES["graphs"])
+
+
+def check_runs(ex: dict, per: dict, steps: int, what: str,
+               eager: int = 0) -> None:
+    """A run of `steps` graph replays and `eager` eager steps over
+    ex["captures"] captures: each kernel k of `per` launched per[k] times
+    a step, so its wrapper was called per[k] (2 captures + eager) times
+    and it ran per[k] (steps + captures + eager) times (a capture's
+    warm-up runs, the capture itself does not).  The wrapper count is
+    exact; of the device runs the profiler may miss a few records: two at
+    the edges of a window, and on a long window of graph replays a buffer
+    of them (on an H100, 3 of each SLIC kernel's 93 in a 30-pair stereo
+    drive, none in 6-pair drives), so up to 5% (at least 2) may be
+    missing, none extra.
+    That every replay ran every kernel is shown by the graphed map's
+    equality with the eager one (the `graph` phase)."""
+    c = ex["captures"]
+    for k, n in per.items():
+        calls, runs = n * (2 * c + eager), n * (steps + c + eager)
+        slack = max(2, runs // 20)
+        require(ex["calls"][k] == calls
+                and max(runs - slack, 0) <= ex["runs"][k] <= runs,
+                f"{what}: {k} wrapper calls {ex['calls'][k]} (want "
+                f"{calls}), device runs {ex['runs'][k]} (want {runs}; "
+                f"{steps} replays, {c} captures, {eager} eager steps)")
+
+
+@functools.lru_cache(maxsize=1)
+def eager_classes():
+    """The eager references of the graphed drivers: DeviceResidentMapping
+    and MultiSessionMapping whose depth-fed and stereo steps run op by op
+    (`fuse_step.fuse_frame_onebuf` / `fuse_frame_stereo_onebuf`,
+    `multistream.batched_onebuf_step`) from one uploaded payload, as they
+    ran before the steps were captured."""
+    from densesurfelmapping_tpu_torch.parallel import multistream
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+
+    class EagerDriver(DeviceResidentMapping):
+        def _fuse_packed(self, buf):
+            with self.timer.stage("dispatch"):
+                _, stats = FS.fuse_frame_onebuf(self.config, self.bank,
+                                                self._upload(buf))
+            self._fused(stats)
+
+        def _fuse_stereo_packed(self, buf):
+            with self.timer.stage("dispatch"):
+                _, stats = FS.fuse_frame_stereo_onebuf(
+                    self.config, self._stereo_cfg, self._stereo_filter,
+                    self.bank, self._upload(buf))
+            self._fused(stats)
+
+    class EagerFleet(MultiSessionMapping):
+        def _run_round(self, cfg, src):
+            if self._stereo_cfg is not None:
+                return super()._run_round(cfg, src)
+            with self.timer.stage("upload"):
+                payload = self._upload(src)
+            with self.timer.stage("dispatch"):
+                return multistream.batched_onebuf_step(cfg, self.banks,
+                                                       payload)
+
+    return EagerDriver, EagerFleet
+
+
 def phase_cli(device, drive_frames) -> dict:
     """The port's CLI end to end on the card (cli.main in this process, the
     default --device cuda): the loop scene with --eval, --stereo --sgm with
@@ -952,19 +1084,21 @@ def phase_cli(device, drive_frames) -> dict:
             total[k] = total.get(k, 0) + v
 
     # diagnose: one JSON line with the JAX package's keys
-    (rc, out, _), n = counted(lambda: run_cli(["diagnose", "--fuse-frames",
-                                               "15"]))
-    add(n)
+    (rc, out, _), ex = executed(lambda: run_cli(["diagnose", "--fuse-frames",
+                                                 "15"]))
+    add(ex["runs"])
     diag = json.loads(out.strip().splitlines()[-1])
     require(rc == 0 and set(diag) == {"backend", "dispatch_ms", "h2d_mbps",
                                       "fuse_ms", "block_lies", "healthy"},
             f"diagnose: rc {rc}, keys {sorted(diag)}")
     require(diag["backend"] == "cuda" and diag["block_lies"] is False,
             f"diagnose: {diag}")
-    require(all(n[k] == 3 * 17 for k in ("slic_assign", "slic_centroid",
-                                         "slic_huber")),
-            f"diagnose: SLIC launches {n} (3 per fused frame, 17 frames)")
-    say("cli", f"diagnose on the card: {json.dumps(diag)}")
+    require(ex["captures"] == 1, f"diagnose: {ex['captures']} captures")
+    check_runs(ex, {k: cfg.sp_iters for k in SLIC}, 17,
+               "diagnose (one replay of the captured step per fused frame, "
+               "17 frames)")
+    say("cli", f"diagnose on the card: {json.dumps(diag)}; one graph "
+        f"captured, device runs {ex['runs']}")
 
     # the host pack of one KITTI frame: native encoder against numpy
     img, dep = synthetic.default_scene().render(cfg, np.eye(4))
@@ -994,10 +1128,10 @@ def phase_cli(device, drive_frames) -> dict:
 
     # 2. the loop scene with --eval (the verify recipe's command)
     loop = f"{CLI_DIR}/loop"
-    (rc, out, _), n = counted(lambda: run_cli(
+    (rc, out, _), ex = executed(lambda: run_cli(
         ["synthetic", "--frames", "60", "--loop", "--kf-every", "2", "--eval",
          "--out", loop]))
-    add(n)
+    add(ex["runs"])
     require(rc == 0, f"synthetic --loop: rc {rc}")
     for suffix in CLI_OUTPUTS:
         require(os.path.exists(loop + suffix)
@@ -1009,53 +1143,55 @@ def phase_cli(device, drive_frames) -> dict:
     require(fid.get("mae", float("inf")) < LOOP_MAE_M,
             f"synthetic --loop: fidelity MAE {fid.get('mae')} >= {LOOP_MAE_M}")
     fused = frames_fused(out)
-    want = cfg.sp_iters * (fused + 1)      # + the _seg.png render
-    require(all(n[k] == want for k in ("slic_assign", "slic_centroid",
-                                       "slic_huber"))
-            and n["sgm_census_x"] == n["sgm_census_y"] == 0,
-            f"synthetic --loop: launches {n}, want {want} of each SLIC "
-            f"kernel ({fused} frames + the segmentation render)")
+    # + the _seg.png render, eager
+    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0,
+                        **{k: cfg.sp_iters for k in SLIC}), fused,
+               f"synthetic --loop ({fused} frames + the segmentation "
+               f"render)", eager=1)
     say("cli", f"synthetic --loop: rc 0, the seven outputs written, "
         f"{int(ckpt['bank_count'])} surfels in the checkpoint, MAE "
-        f"{fid['mae']} m (< {LOOP_MAE_M}); launches {n}")
+        f"{fid['mae']} m (< {LOOP_MAE_M}); {ex['captures']} graph(s) "
+        f"captured, device runs {ex['runs']}")
 
     # 3. stereo-resident, census SGM
     st = f"{CLI_DIR}/stereo"
-    (rc, out, _), n = counted(lambda: run_cli(
+    (rc, out, _), ex = executed(lambda: run_cli(
         ["synthetic", "--frames", "40", "--stereo", "--sgm", "--kf-every",
          "2", "--eval", "--out", st]))
-    add(n)
+    add(ex["runs"])
     require(rc == 0, f"synthetic --stereo --sgm: rc {rc}")
     fid = cli_json(out, "fidelity: ")
     require(fid.get("mae", float("inf")) < STEREO_MAE_M,
             f"synthetic --stereo --sgm: MAE {fid.get('mae')} >= "
             f"{STEREO_MAE_M}")
     fused = frames_fused(out)
-    require(n["sgm_census_x"] == n["sgm_census_y"] == fused
-            and n["sgm_axis_scan"] == 0,
-            f"synthetic --stereo --sgm: launches {n}, want B5/B6 once for "
-            f"each of {fused} frames")
-    require(n["slic_assign"] == cfg.sp_iters * (fused + 1),
-            f"synthetic --stereo --sgm: SLIC launches {n}")
+    check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1, sgm_axis_scan=0),
+               fused, f"synthetic --stereo --sgm (B5/B6 once for each of "
+               f"{fused} frames)")
+    check_runs(ex, {k: cfg.sp_iters for k in SLIC}, fused,
+               "synthetic --stereo --sgm (+ the segmentation render)",
+               eager=1)
     say("cli", f"synthetic --stereo --sgm: rc 0, MAE {fid['mae']} m "
-        f"(< {STEREO_MAE_M}); launches {n}")
+        f"(< {STEREO_MAE_M}); {ex['captures']} graph(s) captured, device "
+        f"runs {ex['runs']}")
 
     # 4. the loop-closure stress run, depth-fed.  120 frames: at 48 the
     # post-correction MAE read above the pre-correction one on the card (the
     # two average different eval frames); the host renders this scene at
     # ~1.3 s a frame, ~170 s of the phase
-    (rc, out, _), n = counted(lambda: run_cli(
+    (rc, out, _), ex = executed(lambda: run_cli(
         ["stress", "--frames", "120", "--radius", "15", "--kf-every", "2",
          "--out", f"{CLI_DIR}/stress"]))
-    add(n)
+    add(ex["runs"])
     require(rc == 0, f"stress: rc {rc}")
     pre = cli_json(out, "fidelity pre-correction: ")
     post = cli_json(out, "fidelity post-correction:")
     require(post["mae"] < pre["mae"], f"stress: post-correction MAE "
             f"{post['mae']} not below pre-correction {pre['mae']}")
-    require(n["slic_assign"] > 0, f"stress: launches {n}")
+    require(ex["calls"]["slic_assign"] > 0 and ex["runs"]["slic_assign"]
+            > ex["calls"]["slic_assign"], f"stress: launches {ex}")
     say("cli", f"stress: rc 0, MAE pre {pre['mae']} -> post {post['mae']} m; "
-        f"launches {n}")
+        f"{ex['captures']} graph(s) captured, device runs {ex['runs']}")
 
     # 5. kitti over a generated KITTI-layout directory, then replay
     root = f"{CLI_DIR}/kitti_seq"
@@ -1095,24 +1231,24 @@ def phase_cli(device, drive_frames) -> dict:
             require(np.array_equal(png.read_png(
                 f"{root}/image_0/{i:06d}.png"), img), "io/png.py misread "
                 f"image_0/{i:06d}.png")
-        (rc, _, _), n = counted(lambda: run_cli(
+        (rc, _, _), ex = executed(lambda: run_cli(
             ["kitti", "--root", root, "--kf-every", "2",
              "--out", f"{CLI_DIR}/kitti"]))
-        add(n)
-        (rc_r, _, _), n_r = counted(lambda: run_cli(
+        add(ex["runs"])
+        (rc_r, _, _), ex_r = executed(lambda: run_cli(
             ["replay", "--feed", feed_path, "--root", root, "--out",
              f"{CLI_DIR}/replay"]))
-        add(n_r)
+        add(ex_r["runs"])
     finally:
         for m, mod in blocked.items():
             if mod is None:
                 sys.modules.pop(m, None)
             else:
                 sys.modules[m] = mod
-    require(rc == 0 and n["slic_assign"] > 0, f"kitti: rc {rc}, launches "
-            f"{n}")
-    require(rc_r == 0 and n_r["slic_assign"] > 0, f"replay: rc {rc_r}, "
-            f"launches {n_r}")
+    for tag, code, e in (("kitti", rc, ex), ("replay", rc_r, ex_r)):
+        require(code == 0 and e["calls"]["slic_assign"] > 0
+                and e["runs"]["slic_assign"] > 0,
+                f"{tag}: rc {code}, launches {e}")
 
     def drive_direct(messages):
         """DeviceResidentMapping fed the frames' arrays directly: pose
@@ -1160,9 +1296,9 @@ def phase_cli(device, drive_frames) -> dict:
 
     # 6. multi: 4 streams, 20 rounds; per-session clouds and checkpoints
     mp = f"{CLI_DIR}/multi"
-    (rc, out, _), n = counted(lambda: run_cli(
+    (rc, out, _), ex = executed(lambda: run_cli(
         ["multi", "--streams", "4", "--frames", "20", "--out", mp]))
-    add(n)
+    add(ex["runs"])
     require(rc == 0, f"multi: rc {rc}")
     for k in range(4):
         for suffix in (".pcd", ".ckpt.npz"):
@@ -1171,13 +1307,12 @@ def phase_cli(device, drive_frames) -> dict:
                     f"multi: {path} missing or empty")
         require(int(np.load(f"{mp}_s{k}.ckpt.npz")["frames_fused"]) == 20,
                 f"multi: session {k} did not fuse 20 frames")
-    require(all(n[k] == cfg.sp_iters * 20 for k in ("slic_assign",
-                                                    "slic_centroid",
-                                                    "slic_huber")),
-            f"multi: launches {n}, want {cfg.sp_iters * 20} of each SLIC "
-            f"kernel (one per sweep for the 4 streams)")
+    require(ex["captures"] == 1, f"multi: {ex['captures']} captures")
+    check_runs(ex, {k: cfg.sp_iters for k in SLIC}, 20,
+               "multi (one launch per sweep for the 4 streams, the round "
+               "replayed from one graph)")
     say("cli", f"multi --streams 4 --frames 20: rc 0, per-session clouds "
-        f"and checkpoints written; launches {n}")
+        f"and checkpoints written; device runs {ex['runs']}")
 
     # 7. the stereo fleet through the CLI
     ms = f"{CLI_DIR}/multi_stereo"
@@ -1445,32 +1580,31 @@ def fleet_rows(multi, k: int) -> dict:
 
 
 def drive_fleet(config, frames, device, n_streams: int, rounds: int,
-                pipelined: bool = False, sync_checked: bool = False):
-    """MultiSessionMapping over `rounds` rounds: stream k fuses frames k,
-    k + 1, ... (keyframe every 2nd round); returns (fleet, aggregate
-    frames/s to a device synchronize)."""
+                pipelined: bool = False, sync_checked: bool = False,
+                cls=None):
+    """MultiSessionMapping (or `cls`) over `rounds` rounds: stream k fuses
+    frames k, k + 1, ... (keyframe every 2nd round); the first round, then
+    the steady rounds under the sync check if asked.  Returns (fleet,
+    aggregate frames/s of the steady rounds, `steady`)."""
     from densesurfelmapping_tpu_torch.pipeline.multi_session import (
         MultiSessionMapping)
-    multi = MultiSessionMapping(config, n_streams, pipelined=pipelined,
-                                device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if sync_checked:
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        for i in range(rounds):
-            for k in range(n_streams):
-                img, dep, pose = frames[k + i]
-                multi.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
-                multi.feed_image(k, float(i), img)
-                multi.feed_depth(k, float(i), dep)
-            multi.step()
-        multi.flush_rounds()
-    finally:
-        if sync_checked:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    fps = n_streams * rounds / (time.perf_counter() - t0)
+    multi = (cls or MultiSessionMapping)(config, n_streams,
+                                         pipelined=pipelined, device=device)
+
+    def round_(i):
+        for k in range(n_streams):
+            img, dep, pose = frames[k + i]
+            multi.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
+            multi.feed_image(k, float(i), img)
+            multi.feed_depth(k, float(i), dep)
+        multi.step()
+
+    def rest():
+        for i in range(1, rounds):
+            round_(i)
+
+    fps = steady(lambda: round_(0), rest, multi.flush_rounds, sync_checked,
+                 n_streams * (rounds - 1))
     multi.close()
     return multi, fps
 
@@ -1506,19 +1640,18 @@ def phase_multi(device, frames, smi: str) -> dict:
     for b in (1, 2, B):                  # warm-up: allocator, first calls
         drive_fleet(cfg, frames, device, b, 2)
     torch.cuda.reset_peak_memory_stats()
-    (multi, fps4), n = counted(lambda: drive_fleet(
+    (multi, fps4), ex = executed(lambda: drive_fleet(
         cfg, frames, device, B, N_ROUNDS, sync_checked=True))
     peak = torch.cuda.max_memory_allocated()
-    say("multi", f"{B} streams x {N_ROUNDS} rounds: kernel launches {n}; "
-        f"steady feed raised no host-device sync; peak device memory "
-        f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; banks "
-        f"{B} x 2^21 rows)")
-    want = cfg.sp_iters * N_ROUNDS
-    require(all(n[k] == want for k in ("slic_assign", "slic_centroid",
-                                       "slic_huber"))
-            and n["sgm_census_x"] == n["sgm_census_y"] == 0,
-            f"fleet: SLIC kernels not launched {cfg.sp_iters}x per round "
-            f"(want {want} each, not x {B}): {n}")
+    say("multi", f"{B} streams x {N_ROUNDS} rounds: wrapper calls "
+        f"{ex['calls']}, device runs {ex['runs']}, {ex['captures']} graph "
+        f"captured; steady feed raised no host-device sync; peak device "
+        f"memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; "
+        f"banks {B} x 2^21 rows, the capture's scratch clone included)")
+    require(ex["captures"] == 1, f"fleet: {ex['captures']} captures")
+    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0,
+                        **{k: cfg.sp_iters for k in SLIC}), N_ROUNDS,
+               f"fleet (SLIC {cfg.sp_iters}x per round, not x {B})")
     require(multi.compactions > 0, "fleet: compaction never ran")
     rows = [fleet_rows(multi, k) for k in range(B)]
     for k, r in enumerate(rows):
@@ -1577,7 +1710,8 @@ def phase_multi(device, frames, smi: str) -> dict:
             f"3 drives of {N_ROUNDS} rounds: {runs}; {fps[1] / b:.2f} per "
             f"stream)")
     say("multi", f"pipelined B = {B}: {fps_p:.2f} frames/s, same maps as "
-        f"eager; sync-checked eager drive {fps4:.2f} ({smi})")
+        f"unpipelined; sync-checked drive under the profiler {fps4:.2f} "
+        f"({smi}; steady rounds, after the first)")
 
     # device work per round at B streams, under the profiler
     from densesurfelmapping_tpu_torch.pipeline.multi_session import (
@@ -1614,7 +1748,7 @@ def phase_multi(device, frames, smi: str) -> dict:
         f"{1 - busy_us / 1e6 / wall:.3f}, {len(dev) / n_prof:.0f} device "
         f"operations/round; SLIC kernels ms/round "
         + ", ".join(f"{k} {v:.4f}" for k, v in kern.items()))
-    return dict(launches=n, rates=rates)
+    return dict(launches=ex["runs"], rates=rates)
 
 
 def phase_multi_stereo(device, pairs) -> dict:
@@ -1695,15 +1829,17 @@ def device_activity(events) -> tuple:
 
 def phase_profile(device) -> None:
     """Device time per frame of the stereo drive by fuse-step scope (a
-    measurement: it prints what the profiler reports and checks nothing)."""
+    measurement: it prints what the profiler reports and checks nothing).
+    The scopes are host-side `record_function` spans, which a graph replay
+    does not enter, so this profiles the eager reference drive
+    (`eager_classes`) of the same frames; the `graph` phase profiles the
+    graphed drive for its wall time, idle share and operations."""
     from torch.profiler import ProfilerActivity, profile
     from densesurfelmapping_tpu_torch.config import kitti_config
-    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
-        DeviceResidentMapping)
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     pairs = make_pairs(cfg, 8)
-    drv = DeviceResidentMapping(cfg, device=device)
+    drv = eager_classes()[0](cfg, device=device)
     drv.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
                       stereo_config=sgm_config())
 
@@ -1728,7 +1864,8 @@ def phase_profile(device) -> None:
     from torch.autograd import DeviceType
     events = prof.events()
     device, busy_us = device_activity(events)
-    say("profile", f"{n} stereo frames under the profiler: wall "
+    say("profile", f"{n} stereo frames of the eager reference under the "
+        f"profiler: wall "
         f"{1e3 * wall / n:.2f} ms/frame, device busy {busy_us / n / 1e3:.2f} "
         f"ms/frame, idle share {1 - busy_us / 1e6 / wall:.3f}, "
         f"{len(device) / n:.0f} device operations/frame")
@@ -1755,6 +1892,359 @@ def phase_profile(device) -> None:
         c = sum(v[1] for k, v in by_name.items() if part in k)
         say("profile", f"kernel {part}: {t / n / 1e3:.4f} ms/frame, "
             f"{c / n:.1f}/frame")
+
+
+N_GROW = 24             # frames of the recapturing drive: 12 keyframes
+                        # grow max_keyframes 4 -> 8 -> 16 (3 captures)
+N_RESUME = 12           # frames before and after the checkpoint load
+N_RATE = 3              # drives per rate: median and spread
+N_PROF = 8              # profiled frames (rounds), after 2 unprofiled
+
+
+def same_banks(a, b) -> bool:
+    """torch.equal on every bank field and on count."""
+    from densesurfelmapping_tpu_torch.core.state import FIELDS
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in FIELDS + ("count",))
+
+
+def graph_kernel_nodes(fn) -> list:
+    """fn() (run once first, outside the capture) captured into a CUDA
+    graph kept for inspection: (grid x, block x, cooperative attribute) of
+    each kernel node, read through the driver API."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(err, what):
+        require(err == 0, f"{what} failed with CUDA driver error {err}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:                      # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func, gridDim x y z, blockDim x y z
+        params = (ctypes.c_ubyte * 128)()
+        ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+           "cuGraphKernelNodeGetParams_v2")
+        value = (ctypes.c_ubyte * 64)()          # CUlaunchAttributeValue
+        ok(cu.cuGraphKernelNodeGetAttribute(ctypes.c_void_p(node), 2, value),
+           "cuGraphKernelNodeGetAttribute(COOPERATIVE)")
+        word = [int.from_bytes(bytes(b[i:i + 4]), "little")
+                for b, i in ((params, 8), (params, 20), (value, 0))]
+        out.append(tuple(word))
+    return out
+
+
+def profiled(step, n_warm: int, n: int) -> dict:
+    """step(i) for i < n_warm, then n more under the profiler: wall ms,
+    device busy ms and device operations per step, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(n_warm):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, busy_us = device_activity(prof.events())
+    return dict(wall_ms=1e3 * wall / n, busy_ms=busy_us / n / 1e3,
+                idle=1 - busy_us / 1e6 / wall, ops=len(dev) / n)
+
+
+def prof_line(tag: str, p: dict, unit: str = "frame") -> str:
+    return (f"{tag}: wall {p['wall_ms']:.2f} ms/{unit}, device busy "
+            f"{p['busy_ms']:.2f} ms/{unit}, idle share {p['idle']:.3f}, "
+            f"{p['ops']:.0f} device operations/{unit}")
+
+
+def steps_of(drv, frames, pairs=None, streams: int = 0):
+    """step(i) feeding frame (pair, fleet round) i to a driver, and its
+    flush."""
+    def depth(i):
+        img, dep, pose = frames[i]
+        drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        drv.feed_image(float(i), img)
+        drv.feed_depth(float(i), dep)
+
+    def stereo(i):
+        li, ri, _, pose = pairs[i]
+        drv.feed_pose(float(i), pose, is_keyframe=(i % 2 == 0))
+        drv.feed_stereo(float(i), li, ri)
+
+    def round_(i):
+        for k in range(streams):
+            img, dep, pose = frames[k + i]
+            drv.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
+            drv.feed_image(k, float(i), img)
+            drv.feed_depth(k, float(i), dep)
+        drv.step()
+
+    if streams:
+        return round_, drv.flush_rounds
+    return (stereo if pairs is not None else depth), drv.flush
+
+
+def first_step_memory(drv, step, flush) -> dict:
+    """The first step of a fresh driver (warm-up and capture of its
+    graph): peak device memory allocated above what was allocated before,
+    and the device memory the driver's graph pool holds after it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(0)
+    flush()
+    torch.cuda.synchronize()
+    pool = tuple(drv._graph_pool.id)
+    held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+    return dict(peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                pool_mib=held / 2**20)
+
+
+def rated(make, frames, pairs, streams: int, n: int) -> tuple:
+    """A fresh driver's steady feed of steps 1..n-1 after its first step:
+    (frames/s, host ms per frame or round by StageTimer stage)."""
+    from densesurfelmapping_tpu_torch.utils.timing import StageTimer
+    drv = make()
+    step, flush = steps_of(drv, frames, pairs, streams)
+    step(0)
+    flush()
+    torch.cuda.synchronize()
+    drv.timer = StageTimer()
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        step(i)
+    flush()
+    torch.cuda.synchronize()
+    fps = max(streams, 1) * (n - 1) / (time.perf_counter() - t0)
+    return fps, drv.timer.means_ms()
+
+
+def phase_graph(device, frames, pairs, smi: str) -> dict:
+    """The drivers' captured steps (`fuse_step.StepGraph`) against their
+    eager references (`eager_classes`): B5's cooperative node under
+    capture; the depth-fed drive (60 frames) and the stereo drive (30
+    pairs) under the sync check after the first frame, torch.equal to the
+    eager drives, with the map, warp and launch checks; a drive whose
+    keyframes outgrow max_keyframes (recaptures mid-drive) and a drive
+    resumed from a checkpoint mid-drive, each torch.equal to its eager
+    twin; the 4-stream fleet, each session torch.equal to the eager
+    fleet's.  Measures graphed against eager frames/s (median of 3 drives),
+    host ms by stage, device busy/idle share and operations per frame,
+    capture ms, captures per drive and each graph's memory.  Returns the
+    device runs of the kernels in its graphed runs."""
+    import os
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.models import stereo as ST
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as KS
+    from densesurfelmapping_tpu_torch.parallel.multistream import stream_bank
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+
+    Eager, EagerFleet = eager_classes()
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
+    cfg_f = kitti_config(surfel_capacity=1 << 21, compact_interval=16)
+    scfg = sgm_config()
+    ground_y = synthetic.default_scene().ground_y
+    slic = {k: cfg.sp_iters for k in SLIC}
+    no_sgm = dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0)
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # B5 alone in a CUDA graph: the cooperative launch stays cooperative
+    li, ri, _, _ = pairs[0]
+    cl = ST._census(torch.from_numpy(li).to(device).float(),
+                    scfg.census_radius)
+    cr = ST._census(torch.from_numpy(ri).to(device).float(),
+                    scfg.census_radius)
+    n_d = scfg.max_disparity - scfg.min_disparity
+    acc = torch.zeros((n_d, *cl.shape), device=device)
+    nodes = graph_kernel_nodes(lambda: KS.census_y(
+        cl, cr, acc, (0, 1, -1), scfg.sgm_p1, scfg.sgm_p2,
+        scfg.min_disparity, True))
+    coop = [nd for nd in nodes if nd[2] == 1]
+    require(len(coop) == 1, f"B5 captured: kernel nodes (grid, block, "
+            f"cooperative) {nodes}, want one cooperative node")
+    say("graph", f"B5 (census_y, 8 paths) captured alone: kernel nodes "
+        f"(grid x, block x, cooperative) {nodes}: the cooperative attribute "
+        f"survives the capture (cuGraphKernelNodeGetAttribute), so every "
+        f"replay launches the bands co-resident, or fails")
+
+    # the depth-fed drive: graphed (the driver) against eager
+    (g, _), ex = executed(lambda: drive(cfg, frames, device, False, True))
+    add(ex["runs"])
+    require(ex["captures"] == 1, f"depth-fed: {ex['captures']} captures")
+    check_runs(ex, dict(no_sgm, **slic), len(frames), "graphed depth-fed")
+    e, _ = drive(cfg, frames, device, False, False, cls=Eager)
+    require(same_banks(g.bank, e.bank), "graphed depth-fed drive != the "
+            "eager drive (torch.equal)")
+    st = check_map(bank_to_numpy(g.bank), g, ground_y)
+    werr = check_warp(g)
+    check_warp(e)
+    require(same_banks(g.bank, e.bank), "after the loop warp: graphed != "
+            "eager")
+    say("graph", f"depth-fed, {len(frames)} frames: every bank field "
+        f"torch.equal to the eager drive's, before and after the loop warp "
+        f"(within {werr:.2e} m of the shift); {st['live']} live, ground "
+        f"err {st['ground_err_m']:.3e} m, {st['compactions']} compactions "
+        f"between replays; 1 capture ({g._fuse_graph.capture_ms:.1f} ms), "
+        f"wrapper calls {ex['calls']}, device runs {ex['runs']}; steady "
+        f"feed raised no host-device sync")
+
+    # the stereo drive
+    (gs, _), ex = executed(lambda: drive_stereo(cfg, pairs, device, scfg,
+                                                True))
+    add(ex["runs"])
+    require(ex["captures"] == 1, f"stereo: {ex['captures']} captures")
+    check_runs(ex, dict(slic, sgm_census_x=1, sgm_census_y=1,
+                        sgm_axis_scan=0), len(pairs), "graphed stereo")
+    es, _ = drive_stereo(cfg, pairs, device, scfg, False, cls=Eager)
+    require(same_banks(gs.bank, es.bank), "graphed stereo drive != the "
+            "eager drive (torch.equal)")
+    rows = bank_to_numpy(gs.bank)
+    require((rows["update_times"] > 0).sum() > 0 and gs.compactions > 0,
+            "graphed stereo: empty map or no compaction")
+    for k in ("position", "normal", "size", "weight"):
+        require(bool(np.isfinite(rows[k]).all()), f"stereo: NaN in {k}")
+    swerr = check_warp(gs)
+    say("graph", f"stereo, {len(pairs)} pairs: every bank field torch.equal "
+        f"to the eager drive's; B5 and B6 once per replay; loop warp within "
+        f"{swerr:.2e} m; 1 capture ({gs._stereo_graph.capture_ms:.1f} ms), "
+        f"device runs {ex['runs']}; steady feed raised no host-device sync")
+
+    # keyframes outgrow max_keyframes: two recaptures mid-drive
+    small = dataclasses.replace(cfg, max_keyframes=4)
+    (gr, _), ex = executed(lambda: drive(small, frames[:N_GROW], device,
+                                         False, False))
+    add(ex["runs"])
+    require(gr.config.max_keyframes == 16 and ex["captures"] == 3,
+            f"growth: max_keyframes {gr.config.max_keyframes}, "
+            f"{ex['captures']} captures (want 16, 3)")
+    check_runs(ex, slic, N_GROW, "recapturing drive")
+    er, _ = drive(small, frames[:N_GROW], device, False, False, cls=Eager)
+    require(same_banks(gr.bank, er.bank), "recapturing drive != eager")
+    say("graph", f"max_keyframes 4 -> 16 over {N_GROW} frames: 3 captures "
+        f"(P = 4, 8, 16), the bank torch.equal to the eager twin's")
+
+    # a checkpoint load mid-drive
+    os.makedirs("build/graph", exist_ok=True)
+
+    def resumed(cls, tag):
+        first = cls(cfg, device=device)
+        feed(first, frames[:N_RESUME], False)
+        path = f"build/graph/resume_{tag}.npz"
+        first.save_checkpoint(path)
+        drv = cls(cfg, device=device)
+        drv.load_checkpoint(path)
+        feed(drv, frames[N_RESUME:2 * N_RESUME], False)
+        return drv
+
+    gc, ex = executed(lambda: resumed(DeviceResidentMapping, "graphed"))
+    add(ex["runs"])
+    require(ex["captures"] == 2 and gc._fuse_graph.bank is gc.bank,
+            f"resumed drive: {ex['captures']} captures (want one per "
+            f"driver), graph bank is the loaded bank "
+            f"{gc._fuse_graph.bank is gc.bank}")
+    check_runs(ex, slic, 2 * N_RESUME, "resumed drive")
+    require(same_banks(gc.bank, resumed(Eager, "eager").bank),
+            "resumed drive != eager")
+    say("graph", f"checkpoint saved after {N_RESUME} frames, loaded into a "
+        f"new driver, {N_RESUME} more frames: the step recaptured against "
+        f"the loaded bank, torch.equal to the eager twin")
+
+    # the fleet: one graph per round for the 4 streams
+    (gf, _), ex = executed(lambda: drive_fleet(
+        cfg_f, frames, device, N_STREAMS, N_ROUNDS, sync_checked=True))
+    add(ex["runs"])
+    require(ex["captures"] == 1, f"fleet: {ex['captures']} captures")
+    check_runs(ex, dict(no_sgm, **slic), N_ROUNDS, "graphed fleet")
+    ef, _ = drive_fleet(cfg_f, frames, device, N_STREAMS, N_ROUNDS,
+                        cls=EagerFleet)
+    for k in range(N_STREAMS):
+        require(same_banks(stream_bank(gf.banks, k), stream_bank(ef.banks, k)),
+                f"graphed fleet session {k} != the eager fleet's")
+    say("graph", f"fleet, {N_STREAMS} streams x {N_ROUNDS} rounds: each "
+        f"session torch.equal to the eager fleet's; 1 capture "
+        f"({gf._round.capture_ms:.1f} ms), device runs {ex['runs']}; steady "
+        f"rounds raised no host-device sync")
+    del g, e, gs, es, gr, er, gc, gf, ef
+
+    # rates, host stages, device profile and memory: graphed against eager
+    kinds = (
+        ("depth-fed", lambda c: c(cfg, device=device), frames, None, 0,
+         len(frames)),
+        ("stereo", lambda c: c(cfg, device=device), frames, pairs, 0,
+         len(pairs)),
+        (f"fleet B={N_STREAMS}", lambda c: c(cfg_f, N_STREAMS, device=device),
+         frames, None, N_STREAMS, N_ROUNDS))
+    for tag, make, fr, pr, streams, n in kinds:
+        classes = ((MultiSessionMapping, EagerFleet) if streams
+                   else (DeviceResidentMapping, Eager))
+
+        def build(cls, make=make, pr=pr):
+            drv = make(cls)
+            if pr is not None:
+                drv.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
+                                  stereo_config=scfg)
+            return drv
+
+        fps = {"graphed": [], "eager": []}
+        stages = {}
+        for _ in range(N_RATE):
+            for name, cls in zip(("graphed", "eager"), classes):
+                r, stages[name] = rated(lambda: build(cls), fr, pr, streams,
+                                        n)
+                fps[name].append(r)
+        for name in fps:
+            runs = sorted(fps[name])
+            say("graph", f"{tag} {name}: {runs[1]:.2f} frames/s (median of "
+                f"{N_RATE} drives of {n} {'rounds' if streams else 'frames'}"
+                f", steady after the first: "
+                + ", ".join(f"{x:.2f}" for x in runs)
+                + f"); host ms per {'round' if streams else 'frame'} by "
+                f"stage: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                       sorted(stages[name].items())))
+        for name, cls in zip(("graphed", "eager"), classes):
+            drv = build(cls)
+            step, _ = steps_of(drv, fr, pr, streams)
+            say("graph", prof_line(f"{tag} {name}, {N_PROF} "
+                                   f"{'rounds' if streams else 'frames'} "
+                                   f"under the profiler",
+                                   profiled(step, 2, N_PROF),
+                                   "round" if streams else "frame"))
+        drv = build(classes[0])
+        step, flush = steps_of(drv, fr, pr, streams)
+        mem = first_step_memory(drv, step, flush)
+        graph = drv._round if streams else (drv._stereo_graph if pr is not None
+                                            else drv._fuse_graph)
+        say("graph", f"{tag} graph: capture {graph.capture_ms:.1f} ms "
+            f"(warm-up on a scratch bank + capture, host clock), peak "
+            f"device memory of the first step {mem['peak_mib']:.1f} MiB "
+            f"above what was allocated, graph pool {mem['pool_mib']:.1f} "
+            f"MiB after it ({smi})")
+    return total
 
 
 N_BATCH = 8             # K: frames of the batch phase's stack
@@ -1847,8 +2337,8 @@ def phase_batch(device, frames) -> dict:
         (_, trace_g), n = counted(lambda: FS.fuse_frames_looped(
             cfg, N_LAPS, graph, imgs, deps, poses))
     peak = torch.cuda.max_memory_allocated() - base
-    add(n)
     recs = slic_records(prof)
+    add(recs)
     require(torch.equal(trace_g, trace_e), "looped replay: trace differs "
             "from the eager loop")
     require(same(graph, loop), "looped replay: bank differs from the eager "
@@ -1916,7 +2406,9 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     shards): ShardedDeviceResidentMapping, replicated and frame-sharded,
     depth-fed under the sync check, and stereo, each against the dense
     DeviceResidentMapping; a loop warp; sharded_sgm_disparity against the
-    replicated plain disparity.  Returns the kernel launches."""
+    replicated plain disparity.  Returns the kernel launches of the sharded
+    drives (eager: their wrappers' counts); the dense references replay
+    their captured steps, held to eager drives by the `graph` phase."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.models import stereo as ST
     from densesurfelmapping_tpu_torch.parallel import sgm_sharding
@@ -1948,10 +2440,11 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
         drv = make(kind)
         rates[kind], n = counted(lambda: feed(drv, drive_frames,
                                               sync_checked=True))
-        add(n)
         maps[kind] = sharded_rows(drv)
-        if kind == "dense":
+        if kind == "dense":      # the reference (graphed; the graph phase)
             continue
+        add(n)
+        require(drv._fuse_graph is None, f"{kind}: a graph was built")
         want = 0 if kind == "frame-sharded" else \
             cfg.sp_iters * N_SHARDED * n_sh
         require(all(n[k] == want for k in SLIC),
@@ -1968,7 +2461,8 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
         if kind == "sharded":
             say("sharded", f"loop warp: every live surfel moved by the "
                 f"shift within {check_warp(drv):.2e} m (bound {WARP_TOL_M})")
-    say("sharded", f"frames/s to a synchronize: dense {rates['dense']:.2f}, "
+    say("sharded", f"steady frames/s: dense (graphed) "
+        f"{rates['dense']:.2f}, "
         f"sharded {rates['sharded']:.2f}, frame-sharded "
         f"{rates['frame-sharded']:.2f} ({label}: the replicated work runs "
         f"once per shard on the same card; no multi-card scaling is "
@@ -1981,15 +2475,25 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
         feed_pairs(make(kind), pairs[:2], sgm_config(),
                    sync_checked=False)                          # warm-up
         drv = make(kind)
+        if kind == "dense":      # graphed: its launches by the profiler
+            _, ex = executed(lambda: feed_pairs(drv, pairs, sgm_config(),
+                                                sync_checked=True))
+            add(ex["runs"])
+            check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1,
+                                **{k: cfg.sp_iters for k in SLIC}),
+                       N_SHARDED_STEREO, "dense stereo drive")
+            smaps[kind] = sharded_rows(drv)
+            continue
         _, n = counted(lambda: feed_pairs(drv, pairs, sgm_config(),
                                           sync_checked=True))
         add(n)
         smaps[kind] = sharded_rows(drv)
-        shards = n_sh if kind == "sharded" else 1
+        require(drv._stereo_graph is None, "sharded stereo: a graph was "
+                "built")
         require(n["sgm_census_x"] == n["sgm_census_y"]
-                == N_SHARDED_STEREO * shards,
+                == N_SHARDED_STEREO * n_sh,
                 f"stereo {kind}: B5/B6 launches {n}")
-        require(all(n[k] == cfg.sp_iters * N_SHARDED_STEREO * shards
+        require(all(n[k] == cfg.sp_iters * N_SHARDED_STEREO * n_sh
                     for k in SLIC), f"stereo {kind}: SLIC launches {n}")
     err = same_map(smaps["sharded"], smaps["dense"], "sharded stereo")
     say("sharded", f"stereo ({N_SHARDED_STEREO} pairs, --sgm) under the "
@@ -2024,8 +2528,8 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     return total
 
 
-PHASES = ("kernels", "sgm", "drive", "stereo", "multi-kernels", "multi",
-          "multi-stereo", "batch", "sharded", "cli", "profile")
+PHASES = ("kernels", "sgm", "drive", "stereo", "graph", "multi-kernels",
+          "multi", "multi-stereo", "batch", "sharded", "cli", "profile")
 
 
 def main() -> None:
@@ -2067,6 +2571,11 @@ def main() -> None:
     if run("sgm"):
         records.update(phase_sgm_kernels(device))
         lap("sgm")
+    batched = {}
+    if run("multi-kernels"):
+        # every kernel timing runs before the first captured graph
+        batched = phase_multi_kernels(device, records)
+        lap("multi-kernels")
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     t0 = time.perf_counter()
@@ -2083,16 +2592,19 @@ def main() -> None:
 
     if run("drive"):
         drive(cfg, frames[:4], device, pipelined=False, sync_checked=False)
-        (drv, fps), n = counted(lambda: drive(cfg, frames, device,
+        (drv, _), ex = executed(lambda: drive(cfg, frames, device,
                                               pipelined=False,
                                               sync_checked=True))
-        add(n)
-        say("drive", f"kernel launches in the drive: {n}")
-        require(all(n[k] == cfg.sp_iters * drv.frames_fused == cfg.sp_iters
-                    * N_FRAMES for k in ("slic_assign", "slic_centroid",
-                                         "slic_huber")),
-                f"the SLIC kernels were not launched {cfg.sp_iters}x per "
-                f"frame on the main path")
+        add(ex["runs"])
+        say("drive", f"kernel launches in the drive: wrapper calls "
+            f"{ex['calls']}, device runs {ex['runs']} (profiler kernel "
+            f"records), {ex['captures']} graph captured")
+        require(ex["captures"] == 1 and drv.frames_fused == N_FRAMES,
+                f"depth-fed drive: {ex['captures']} captures, "
+                f"{drv.frames_fused} frames")
+        check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0,
+                            **{k: cfg.sp_iters for k in SLIC}), N_FRAMES,
+                   f"depth-fed drive (SLIC {cfg.sp_iters}x per frame)")
         rows_a = bank_to_numpy(drv.bank)
         stats = check_map(rows_a, drv, synthetic.default_scene().ground_y)
         say("drive", f"map: {stats['live']} live surfels, {stats['ground']} "
@@ -2103,6 +2615,8 @@ def main() -> None:
         say("drive", f"loop warp: every live surfel moved by the shift "
             f"within {check_warp(drv):.2e} m (bound {WARP_TOL_M})")
 
+        _, fps = drive(cfg, frames, device, pipelined=False,
+                       sync_checked=False)
         drv_p, fps_p = drive(cfg, frames, device, pipelined=True,
                              sync_checked=False)
         rows_p = bank_to_numpy(drv_p.bank)
@@ -2112,7 +2626,8 @@ def main() -> None:
             require(bool(np.allclose(rows_p[k], v, atol=1e-5)),
                     f"pipelined drive: bank.{k} differs")
         say("rate", f"{N_FRAMES} frames: {fps:.2f} frames/s unpipelined, "
-            f"{fps_p:.2f} frames/s pipelined, same map ({smi})")
+            f"{fps_p:.2f} frames/s pipelined (the steady feed after the "
+            f"first frame), same map ({smi})")
         del drv, drv_p
     lap("drive (renders included)")
 
@@ -2121,10 +2636,11 @@ def main() -> None:
         n, pairs = phase_stereo(device)
         add(n)
         lap("stereo")
-    batched = {}
-    if run("multi-kernels"):
-        batched = phase_multi_kernels(device, records)
-        lap("multi-kernels")
+    if run("graph"):
+        if pairs is None:
+            pairs = make_pairs(cfg, N_STEREO_FRAMES)
+        add(phase_graph(device, frames, pairs, smi))
+        lap("graph")
     if run("multi"):
         add(phase_multi(device, frames, smi)["launches"])
         lap("multi")
@@ -2159,7 +2675,12 @@ def main() -> None:
             name=name, route="cuda",
             source=f"densesurfelmapping_tpu_torch/csrc/{src}.cu",
             replaces=f"densesurfelmapping_tpu/ops/pallas/{src}.py:{line}",
-            launches=launches[name], max_abs_err=rec["max_abs_err"],
+            launches=launches[name],
+            launches_counted_by="device runs: the profiler's kernel records "
+            "of each run of the main paths (a graph replay launches the "
+            "kernels without calling their wrappers); eager runs: the "
+            "wrappers' counts",
+            max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=None)

@@ -161,6 +161,20 @@ def batched_onebuf_step(config: SurfelMapConfig, banks: SurfelBank,
         banks, images, depths, poses, refs, masks)
 
 
+def graphed_onebuf_step(config: SurfelMapConfig, banks: SurfelBank,
+                        pool=None) -> fuse_step.StepGraph:
+    """`batched_onebuf_step` on `banks` as a `fuse_step.StepGraph` over the
+    round's (B, 3 h w + 72 + P) payload: the whole round, B1-B3's batched
+    launches (grid z = stream) included, in one captured graph replayed
+    once per round.  The counterpart of the JAX fleet's jitted
+    `_batched_onebuf_step` (densesurfelmapping_tpu/pipeline/
+    multi_session.py:81-88)."""
+    return fuse_step.StepGraph(
+        lambda bk, buf: batched_onebuf_step(config, bk, buf), banks,
+        (banks.count.shape[0], fuse_step.onebuf_bytes(config)), pool,
+        keep=fuse_step.step_geometry(config, banks))
+
+
 def _fuse_depth(config, bank, image, depth, pose, frame_index, pose_mask):
     return fuse_step.fuse_frame(config, bank, FrameInput(
         image=image, depth=depth, pose=pose, frame_index=frame_index),

@@ -18,7 +18,14 @@ lifecycle as a (max_keyframes,) boolean window mask shipped with each frame:
 * stats — never fetched in the feed loop; `sync_stats()` on demand only.
 
 Each frame's whole payload (packed frame + pose/index/window aux) travels in
-ONE host-to-device copy, from pinned memory without blocking the host.
+ONE host-to-device copy, from pinned memory without blocking the host, into
+the static input buffer of the fuse step captured as a CUDA graph
+(`fuse_step.StepGraph`, where the JAX driver dispatches a jitted step): one
+graph per step signature, captured at its first frame, replayed once per
+frame, and captured again where the JAX driver re-jits (keyframe-capacity
+growth) and where the bank's tensors are replaced (a checkpoint load).
+Compaction and the loop warp stay eager operations between replays; both
+write the bank in place.
 Semantics match `SurfelMapping` (equivalence-tested); readouts
 (export/eval/checkpoint) transfer the bank once, off the hot path.
 """
@@ -61,12 +68,42 @@ class DeviceResidentMapping(SurfelMapping):
         self._pack_pool = (ThreadPoolExecutor(max_workers=1)
                            if pipelined else None)
         self._pending = None   # future of the packed one-buffer payload
+        # one memory pool for the driver's captured steps
+        self._graph_pool = fuse_step.graph_pool(self.device)
+        self._fuse_graph = None
+        self._stereo_graph = None
+        self._build_window_graphs()
 
     def close(self) -> None:
         """Complete any in-flight frame and stop the pack worker."""
         self._flush_pending()
         if self._pack_pool is not None:
             self._pack_pool.shutdown()
+
+    def _build_window_graphs(self) -> None:
+        """(Re)build the captured steps, whose payload length depends on
+        config.max_keyframes and whose graphs write the current bank: the
+        counterpart of the JAX driver's `_build_window_jits`
+        (densesurfelmapping_tpu/pipeline/device_driver.py:72-79).  Called
+        again on keyframe-capacity growth and after a checkpoint load; each
+        step is captured at its first frame."""
+        self._fuse_graph = fuse_step.graphed_fuse_frame_onebuf(
+            self.config, self.bank, self._graph_pool)
+        self._stereo_graph = None
+        if self._stereo_cfg is not None:
+            self._build_stereo_graph()
+
+    def _build_stereo_graph(self) -> None:
+        """The stereo-resident step's graph (`_build_stereo_jit`,
+        densesurfelmapping_tpu/pipeline/device_driver.py:80-83)."""
+        self._stereo_graph = fuse_step.graphed_fuse_frame_stereo_onebuf(
+            self.config, self._stereo_cfg, self._stereo_filter, self.bank,
+            self._graph_pool)
+
+    def enable_stereo(self, bf: float, stereo_config=None,
+                      filter_depth: bool = True) -> None:
+        super().enable_stereo(bf, stereo_config, filter_depth)
+        self._build_stereo_graph()
 
     def _ensure_keyframe_capacity(self) -> None:
         """Grow max_keyframes to the next power of two when the pose graph
@@ -86,6 +123,7 @@ class DeviceResidentMapping(SurfelMapping):
         w = np.zeros(new_p, bool)
         w[:len(self._window_np)] = self._window_np
         self._window_np = w
+        self._build_window_graphs()
 
     # ------------------------------------------------------------------
     # migration == window-mask update (no device work at all)
@@ -106,13 +144,17 @@ class DeviceResidentMapping(SurfelMapping):
     # ------------------------------------------------------------------
     # fuse with window gating; fixed-schedule compaction; no stat reads
     # ------------------------------------------------------------------
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy of the packed payload; on a GPU it is
-        staged in pinned memory and does not block the host."""
+    def _staged(self, buf: np.ndarray) -> torch.Tensor:
+        """The packed payload as a tensor to copy to the device: on a GPU a
+        fresh pinned copy, so the copy does not block the host (the pinned
+        allocator reuses a block only once the copies that read it are
+        done)."""
         t = torch.from_numpy(buf)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy of the packed payload."""
+        return self._staged(buf).to(self.device, non_blocking=True)
 
     def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
         aux = pack_aux(pose, ref_index, self._window_np,
@@ -137,18 +179,18 @@ class DeviceResidentMapping(SurfelMapping):
 
     def _fuse_packed(self, buf: np.ndarray) -> None:
         with self.timer.stage("dispatch"):
-            _, stats = fuse_step.fuse_frame_onebuf(self.config, self.bank,
-                                                   self._upload(buf))
+            stats = self._fuse_graph(self._staged(buf))
         self._fused(stats)
 
     def _fuse_stereo_packed(self, buf: np.ndarray) -> None:
         with self.timer.stage("dispatch"):
-            _, stats = fuse_step.fuse_frame_stereo_onebuf(
-                self.config, self._stereo_cfg, self._stereo_filter,
-                self.bank, self._upload(buf))
+            stats = self._stereo_graph(self._staged(buf))
         self._fused(stats)
 
     def _fused(self, stats) -> None:
+        # on the card: the graph's static stats, which the next replay
+        # overwrites (the JAX driver's sync_stats also reads only the
+        # latest frame's)
         self._stats_dev = stats
         self._host_rows = None
         self.frames_fused += 1
@@ -260,6 +302,8 @@ class DeviceResidentMapping(SurfelMapping):
         self._load_bank(z)
         self._load_graph(z)
         self._ensure_keyframe_capacity()
+        # the graphs wrote the replaced bank's tensors
+        self._build_window_graphs()
         mask = np.zeros(self.config.max_keyframes, bool)
         mask[sorted(self.local_indices)] = True
         self._window_np = mask
@@ -301,6 +345,13 @@ class ShardedDeviceResidentMapping(DeviceResidentMapping):
                 config, mesh)
         self._scompact = sharding.sharded_compact(config, mesh)
         self._swarp = sharding.sharded_warp_by_pose(config, mesh)
+
+    # the mesh step stays eager: no captured graph
+    def _build_window_graphs(self) -> None:
+        pass
+
+    def _build_stereo_graph(self) -> None:
+        pass
 
     def _payload(self, buf: np.ndarray, frame_bytes: int):
         from ..parallel.multistream import unpack_payload

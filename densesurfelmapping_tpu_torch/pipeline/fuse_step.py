@@ -7,12 +7,14 @@ Counterpart of the JAX package's `pipeline/fuse_step.py`: the whole hot path
 
 on tensors of one device.  The bank is updated in place (where the JAX
 package donates it); the stats dict holds device scalars, read by the host
-only when it asks.
+only when it asks.  Where the JAX drivers dispatch a jitted step, the
+port's drivers replay the step captured in a CUDA graph (`StepGraph`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import time
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -325,6 +327,59 @@ def fuse_frames_looped(config: SurfelMapConfig, n_loops: int,
     return bank, torch.stack(trace)
 
 
+# graphs captured in this process (`capture`: LapGraph and StepGraph), read
+# beside the kernels' LAUNCHES: a replayed graph launches its kernels without
+# calling their wrappers
+CAPTURES = {"graphs": 0}
+
+
+def capture(bank: SurfelBank, body: Callable[[SurfelBank], object],
+            pool=None, reset: Callable[[], None] | None = None):
+    """Capture body(bank) into a `torch.cuda.CUDAGraph`: returns (graph,
+    what the captured call returned, its tensors now the graph's static
+    outputs).
+
+    body(scratch) runs once first, on a side stream, against a clone of
+    the bank: every lazily built object (geometry planes, library handles,
+    the kernel libraries) is built there, outside the capture, where an
+    upload from pageable memory or a synchronisation is allowed.  The clone
+    is freed before the capture (`torch.cuda.graph` empties the cache on
+    entry); `reset` undoes the warm-up's other side effects.  The capture
+    runs in "thread_local" mode: the drivers' worker threads (the pack
+    worker, the fleet's pipelined rounds, pinned allocations on the main
+    thread) may call CUDA while it runs, and only this thread is barred
+    from calls that a capture forbids.  `pool` (`graph_pool`) shares one
+    memory pool between the graphs of a driver."""
+    dev = bank.device
+    if dev.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
+    scratch = SurfelBank(**{f: getattr(bank, f).clone()
+                            for f in bank.__dataclass_fields__})
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body(scratch)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    del scratch
+    if reset is not None:
+        reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=None if pool is None else pool.id,
+                          capture_error_mode="thread_local"):
+        out = body(bank)
+    CAPTURES["graphs"] += 1
+    return graph, out
+
+
+def graph_pool(device: torch.device):
+    """The memory pool a driver's captured steps share, or None off the
+    card.  A `torch.cuda.MemPool` holds its pool open for as long as the
+    driver keeps it: a pool from `torch.cuda.graph_pool_handle()` closes
+    when its last graph is freed, and capturing the next graph into it
+    fails (a recapture frees the graph it replaces)."""
+    return torch.cuda.MemPool() if device.type == "cuda" else None
+
+
 class LapGraph:
     """One lap of `fuse_frames_looped` (K compact fuse steps over a
     device-resident frame stack) captured into a `torch.cuda.CUDAGraph`.
@@ -333,17 +388,12 @@ class LapGraph:
     each `replay()` continues the map of the one before.  The frame index
     is a device counter the graph itself advances, and captured copies
     write the bank's count after each step into `trace` ((n_loops * K,)
-    i32): nothing is uploaded between replays.  Inside the capture nothing
-    synchronises or uploads from pageable memory; every lazily built
-    object (geometry planes, library handles, the kernel libraries) is
-    built first by a warm-up lap on a scratch copy of the bank."""
+    i32): nothing is uploaded between replays (`capture` has the recipe)."""
 
     def __init__(self, config: SurfelMapConfig, bank: SurfelBank,
                  images_u8: torch.Tensor, depths_f16: torch.Tensor,
                  poses: torch.Tensor, n_loops: int):
         dev = bank.device
-        if dev.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
         self.n_loops = n_loops
         self.replays = 0
         k = images_u8.shape[0]
@@ -358,20 +408,12 @@ class LapGraph:
                                        target.count.view(1))
                 counter.add_(1)
 
-        scratch = SurfelBank(**{f: getattr(bank, f).clone()
-                                for f in bank.__dataclass_fields__})
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            lap(scratch)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        del scratch
-        counter.zero_()
-        self.trace.zero_()
+        def reset() -> None:
+            counter.zero_()
+            self.trace.zero_()
 
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            lap(bank)
+        self.keep = step_geometry(config, bank)
+        self.graph, _ = capture(bank, lap, reset=reset)
 
     def replay(self) -> None:
         """Enqueue one lap.  The trace has room for n_loops laps: a
@@ -380,6 +422,117 @@ class LapGraph:
             raise RuntimeError(f"the trace holds {self.n_loops} laps")
         self.replays += 1
         self.graph.replay()
+
+
+class StepGraph:
+    """One per-frame fuse step captured into a `torch.cuda.CUDAGraph` and
+    replayed once per frame: the counterpart of the JAX package's compiled
+    steps `jitted_fuse_frame_onebuf` (densesurfelmapping_tpu/pipeline/
+    fuse_step.py:361-364), `jitted_fuse_frame_stereo_onebuf` (:379-384) and
+    `jitted_fuse_frame_packed` (:113-115, `diagnose`'s step), which the
+    JAX drivers build once per step signature and dispatch once per
+    frame.
+
+    `step(bank, buf) -> stats` is the eager step over one packed u8 payload
+    of shape `shape` ((n,) for a driver, (B, n) for a fleet round).  The
+    object owns a static input buffer of that shape on the bank's device,
+    the bank the step was captured against (updated in place, so its
+    tensors keep their addresses), and the static stats tensors the
+    captured step returns; `keep` holds whatever else the graph reads and
+    must outlive it (the cached geometry planes of `ops/superpixel.py`).
+
+    `load(buf)` copies a frame's payload (a pinned host tensor or a device
+    tensor) into the static buffer; `replay()` captures the step at its
+    first call (`capture`: a warm-up on a scratch clone of the bank, then
+    the capture, which synchronises like a jit's first call) and enqueues
+    one replay; `__call__(buf)` does both and returns the stats, which the
+    next replay overwrites.  On a CPU bank the same object runs the same
+    step eagerly through the same static buffer; on a CUDA bank it captures
+    or raises."""
+
+    def __init__(self, step: Callable[[SurfelBank, torch.Tensor], dict],
+                 bank: SurfelBank, shape, pool=None, keep=()):
+        self.step = step
+        self.bank = bank
+        self.buf = torch.zeros(shape, dtype=torch.uint8, device=bank.device)
+        self.pool = pool
+        self.keep = keep
+        self.graph = None
+        self.stats: dict | None = None
+        self.capture_ms = 0.0   # host ms of the warm-up and the capture
+
+    def load(self, buf: torch.Tensor) -> None:
+        self.buf.copy_(buf, non_blocking=True)
+
+    def replay(self) -> dict:
+        if self.bank.device.type != "cuda":
+            return self.step(self.bank, self.buf)
+        if self.graph is None:
+            t0 = time.perf_counter()
+            self.graph, self.stats = capture(
+                self.bank, lambda b: self.step(b, self.buf), self.pool)
+            self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.graph.replay()
+        return self.stats
+
+    def __call__(self, buf: torch.Tensor) -> dict:
+        self.load(buf)
+        return self.replay()
+
+
+def onebuf_bytes(config: SurfelMapConfig) -> int:
+    """Length of `fuse_frame_onebuf`'s payload: 3 H W + 72 + P."""
+    return 3 * config.height * config.width + AUX_HEAD_BYTES \
+        + config.max_keyframes
+
+
+def stereo_onebuf_bytes(config: SurfelMapConfig) -> int:
+    """Length of `fuse_frame_stereo_onebuf`'s payload: 2 H W + 72 + P."""
+    return 2 * config.height * config.width + AUX_HEAD_BYTES \
+        + config.max_keyframes
+
+
+def step_geometry(config: SurfelMapConfig, bank: SurfelBank):
+    """The cached geometry planes a captured step reads (kept alive by its
+    StepGraph: the cache may evict them)."""
+    return superpixel.device_geometry(config, bank.device)
+
+
+def graphed_fuse_frame_onebuf(config: SurfelMapConfig, bank: SurfelBank,
+                              pool=None) -> StepGraph:
+    """`fuse_frame_onebuf` on `bank` as a StepGraph (the JAX package's
+    `jitted_fuse_frame_onebuf`)."""
+    return StepGraph(lambda b, buf: fuse_frame_onebuf(config, b, buf)[1],
+                     bank, (onebuf_bytes(config),), pool,
+                     keep=step_geometry(config, bank))
+
+
+def graphed_fuse_frame_stereo_onebuf(config: SurfelMapConfig, stereo_config,
+                                     filter_depth: bool, bank: SurfelBank,
+                                     pool=None) -> StepGraph:
+    """`fuse_frame_stereo_onebuf` on `bank` as a StepGraph (the JAX
+    package's `jitted_fuse_frame_stereo_onebuf`)."""
+    return StepGraph(
+        lambda b, buf: fuse_frame_stereo_onebuf(
+            config, stereo_config, filter_depth, b, buf)[1],
+        bank, (stereo_onebuf_bytes(config),), pool,
+        keep=step_geometry(config, bank))
+
+
+def graphed_fuse_frame_packed(config: SurfelMapConfig, bank: SurfelBank,
+                              pool=None) -> StepGraph:
+    """`fuse_frame_packed` on `bank` as a StepGraph (the JAX package's
+    `jitted_fuse_frame_packed`).  Its payload is `core.state.pack_frame`'s
+    bytes followed by a 72-byte `pack_aux` head (pose and frame index; bf
+    unused, no window mask)."""
+    hw3 = 3 * config.height * config.width
+
+    def step(b: SurfelBank, buf: torch.Tensor) -> dict:
+        pose, ref, _, _ = unpack_aux(buf[hw3:])
+        return fuse_frame_packed(config, b, buf[:hw3], pose, ref)[1]
+
+    return StepGraph(step, bank, (hw3 + AUX_HEAD_BYTES,), pool,
+                     keep=step_geometry(config, bank))
 
 
 def segmentation_only(config: SurfelMapConfig, image: torch.Tensor,

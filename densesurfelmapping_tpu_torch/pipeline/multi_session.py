@@ -36,6 +36,12 @@ Serving lifecycle:
 * uploads — a round's entire payload (B frames + B pose/ref/window aux
   blocks) is ONE (B, frame_bytes + aux_bytes) u8 copy per round, from
   pinned memory without blocking the host.
+* dispatch — on the card the depth-fed round is captured as a CUDA graph
+  at its first use (`multistream.graphed_onebuf_step`, where the JAX fleet
+  jits `_batched_onebuf_step`) and replayed once per round; it is captured
+  again when the payload's shape or the banks change (keyframe-capacity
+  growth, `add_session` / `remove_session`, `load_checkpoint`).  The
+  stereo round runs eagerly.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ..config import SurfelMapConfig
 from ..core import geometry
 from ..core.state import AUX_HEAD_BYTES, FIELDS, pack_aux, pack_frame
 from ..parallel import multistream
+from . import fuse_step
 from .pose_graph import PoseGraph
 
 
@@ -129,6 +136,9 @@ class MultiSessionMapping:
         self._dispatch_pool = (ThreadPoolExecutor(max_workers=1)
                                if pipelined else None)
         self._banks_fut = None
+        # the depth-fed round's captured step and its memory pool
+        self._graph_pool = fuse_step.graph_pool(self.device)
+        self._round = None
 
         # fleet-wide on-device stereo front-end (enable_stereo/feed_stereo)
         self._stereo_cfg = None
@@ -267,6 +277,9 @@ class MultiSessionMapping:
         need = max((len(s.graph) for s in self.sessions), default=0)
         if need <= self.config.max_keyframes:
             return
+        # an in-flight round runs the graph of the old payload shape
+        self._flush_round()
+        self._round = None
         new_p = self.config.max_keyframes
         while new_p < need:
             new_p *= 2
@@ -278,26 +291,32 @@ class MultiSessionMapping:
         """A fresh host buffer for one round (a pipelined round in flight
         may still read the previous one): pinned on a GPU, so the upload
         does not block the host.  Returns (numpy view, source to upload)."""
-        shape = (self.n_streams, row_bytes)
-        if self.device.type == "cuda":
-            t = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-            return t.numpy(), t
-        a = np.empty(shape, np.uint8)
-        return a, a
+        t = torch.empty((self.n_streams, row_bytes), dtype=torch.uint8,
+                        pin_memory=self.device.type == "cuda")
+        return t.numpy(), t
 
-    def _upload(self, src) -> torch.Tensor:
+    def _upload(self, src: torch.Tensor) -> torch.Tensor:
         """One host-to-device copy of the round's payload."""
-        if isinstance(src, torch.Tensor):
-            return src.to(self.device, non_blocking=True)
-        return torch.from_numpy(src).to(self.device)
+        return src.to(self.device, non_blocking=True)
 
-    def _dispatch(self, cfg: SurfelMapConfig,
-                  payload_d: torch.Tensor) -> dict:
+    def _run_round(self, cfg: SurfelMapConfig, src: torch.Tensor) -> dict:
+        """Upload a round's payload and enqueue its step; returns the
+        stats.  The depth-fed round copies the payload into its captured
+        step's input and replays it; the stereo round runs eagerly."""
         if self._stereo_cfg is not None:
-            return multistream.batched_stereo_onebuf_step(
-                cfg, self._stereo_cfg, self._stereo_filter, self.banks,
-                payload_d)
-        return multistream.batched_onebuf_step(cfg, self.banks, payload_d)
+            with self.timer.stage("upload"):
+                payload_d = self._upload(src)
+            with self.timer.stage("dispatch"):
+                return multistream.batched_stereo_onebuf_step(
+                    cfg, self._stereo_cfg, self._stereo_filter, self.banks,
+                    payload_d)
+        if self._round is None:
+            self._round = multistream.graphed_onebuf_step(
+                cfg, self.banks, self._graph_pool)
+        with self.timer.stage("upload"):
+            self._round.load(src)
+        with self.timer.stage("dispatch"):
+            return self._round.replay()
 
     def step(self, flush: bool = False) -> int:
         """Fuse one frame per session in a single batched pass.
@@ -358,19 +377,10 @@ class MultiSessionMapping:
             # the next round's prep on the main thread
             self._flush_round()
 
-            def job(src=src, cfg=cfg):
-                with self.timer.stage("upload"):
-                    payload_d = self._upload(src)
-                with self.timer.stage("dispatch"):
-                    return self._dispatch(cfg, payload_d)
-
-            self._banks_fut = self._dispatch_pool.submit(job)
+            self._banks_fut = self._dispatch_pool.submit(self._run_round,
+                                                         cfg, src)
             return fused_real
-        with self.timer.stage("upload"):
-            payload_d = self._upload(src)
-        with self.timer.stage("dispatch"):
-            stats = self._dispatch(cfg, payload_d)
-        self._post_dispatch(stats)
+        self._post_dispatch(self._run_round(cfg, src))
         return fused_real
 
     def _post_dispatch(self, stats) -> None:
@@ -447,6 +457,7 @@ class MultiSessionMapping:
             (1,), dtype=torch.int32, device=self.device)])
         self.sessions.append(_Session(self.config))
         self.n_streams += 1
+        self._round = None
         return self.n_streams - 1
 
     def remove_session(self, stream: int) -> dict:
@@ -458,6 +469,7 @@ class MultiSessionMapping:
         self._drop_accum = self._drop_accum[keep]
         del self.sessions[stream]
         self.n_streams -= 1
+        self._round = None
         return rows
 
     # ------------------------------------------------------------------
@@ -579,3 +591,4 @@ class MultiSessionMapping:
         # -1, not 0: 0 means "owned by keyframe 0" to the window gating)
         multistream.place_rows(self.banks, stream,
                                {k: z[f"bank_{k}"] for k in FIELDS}, n)
+        self._round = None

@@ -10,7 +10,10 @@ its verdict.  Three probes separate the axes along which a run can be slow:
                  (a 2 MB probe first decides whether the 16 MB one is
                  affordable, as the JAX package's does)
 * fuse_ms      - the packed fuse step chained over the KITTI scene, fenced
-                 once
+                 once: on the card one replay per frame of the step
+                 captured as a CUDA graph (`fuse_step.StepGraph`, as the
+                 JAX package dispatches its jitted step), the capture done
+                 in the two frames before the clock starts
 * block_lies   - whether `torch.cuda.synchronize()` returned well before the
                  work was done, read against the readback's time
 """
@@ -75,9 +78,9 @@ def run_diagnostics(n_fuse: int = 15, device="cuda",
     card); `config` defaults to `default_config()`.  Returns the JAX
     package's keys: backend, dispatch_ms, h2d_mbps, fuse_ms, block_lies,
     healthy."""
-    from ..core.state import SurfelBank, pack_frame
+    from ..core.state import SurfelBank, pack_aux, pack_frame_with_aux
     from ..io import synthetic
-    from ..pipeline.fuse_step import fuse_frame_packed
+    from ..pipeline.fuse_step import graphed_fuse_frame_packed
     from .cache import enable_compilation_cache
 
     device = torch.device(device)
@@ -93,18 +96,19 @@ def run_diagnostics(n_fuse: int = 15, device="cuda",
         if quick >= HEALTHY_H2D_MBPS else quick, 1)
 
     # the real fuse step, chained (a fresh upload per frame, as the online
-    # driver does), one fence at the end
+    # driver does), one fence at the end; each frame's buffer carries its
+    # pose and frame index behind the packed frame
     cfg = config or default_config()
     scene = synthetic.default_scene()
     poses = synthetic.forward_trajectory(n_fuse + 2, step=0.4)
-    bufs = [pack_frame(cfg, *scene.render(cfg, p)) for p in poses]
+    bufs = [torch.from_numpy(pack_frame_with_aux(
+        cfg, *scene.render(cfg, p), pack_aux(p, i, np.zeros(0, bool))))
+        for i, p in enumerate(poses)]
     bank = SurfelBank.empty(cfg.surfel_capacity, device)
+    graph = graphed_fuse_frame_packed(cfg, bank)
 
     def step(i):
-        fuse_frame_packed(
-            cfg, bank, torch.from_numpy(bufs[i]).to(device),
-            torch.from_numpy(poses[i].astype(np.float32)).to(device),
-            torch.tensor(i, dtype=torch.int32, device=device))
+        graph(bufs[i].to(device))
 
     for i in range(2):
         step(i)
