@@ -33,15 +33,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
                check against the rendered depth, the peak device memory; the
                fused-census, plain and materialized-volume (B4) matchers build
                the same map, and the materialized drive's peak memory
-  8. graph   - the drivers' captured steps (fuse_step.StepGraph) against
-               eager references of the same drivers: B5 captured alone keeps
-               its cooperative attribute; the depth-fed (60 frames) and
-               stereo (30 pairs) drives under the sync check after the first
-               frame, a drive recapturing as max_keyframes grows 4 -> 16, a
-               drive resumed from a checkpoint mid-drive and the 4-stream
-               fleet, each torch.equal to its eager twin; frames/s graphed
-               vs eager (median of 3), host ms by stage, device busy/idle and
-               operations per frame, capture ms and graph memory
+  8. graph   - the drivers' captured programs (fuse_step.StepGraph and
+               BankGraph) against eager references of the same drivers: B5
+               captured alone keeps its cooperative attribute; the depth-fed
+               (60 frames) and stereo (30 pairs) drives under the sync check
+               after the first frame, a drive recapturing as max_keyframes
+               grows 4 -> 16, a drive resumed from a checkpoint mid-drive and
+               the 4-stream fleet, each torch.equal to its eager twin, with
+               compaction and the loop warp replayed from their graphs;
+               frames/s graphed vs eager (median of 3), host ms by stage,
+               device busy/idle and operations per frame, capture ms and
+               graph memory; the host-pool SurfelMapping (fuse step,
+               compaction, migration append and extract, active warp on
+               graphs) over the 60 frames with the compact and the padded
+               upload, the 30 pairs with --sgm and 4 pairs of the B4
+               matcher, each torch.equal (bank) and equal (pool) to its
+               eager twin, its reads of the device confined to stats
+               frames and migrations, graphed vs eager frames/s
   9. multi-kernels - B1-B3 with the stream axis: over every run_slic sweep
                of 4 distinct KITTI frames (and 3 frames of 120 x 56 at sp 6
                and 16) one launch for all streams, each stream equal to the
@@ -54,8 +62,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
                session 0 moving it alone, pipelined == eager; aggregate
                frames/s at B = 1, 2, 4, device ms, ops and idle share per
                round, peak device memory
- 11. multi-stereo - 2 stereo streams x 8 rounds (--sgm): B5/B6 once per
-               stream and round, maps equal to solo stereo drives (1e-4 m)
+ 11. multi-stereo - the stereo fleet (--sgm), its round replayed from one
+               captured graph, at 2 and 4 streams x 8 rounds: each session
+               torch.equal to the eager fleet's, B5/B6 once per stream and
+               round and B1-B3 3x per round (profiler records), at B = 2
+               equal to solo stereo drives (1e-4 m); aggregate frames/s
+               graphed vs eager, graph pool and peak memory
  12. batch   - fuse_frames_scan over 8 KITTI frames against 8 eager steps
                (torch.equal); fuse_frames_looped (K = 8, 8 laps: one lap
                captured in a CUDA graph and replayed) against the eager
@@ -68,13 +80,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
                (the slabs run the plain SLIC functions), and stereo over 4
                pairs (B5/B6 once per frame per shard), each equal to the
                dense DeviceResidentMapping (1e-4 m), a loop warp, frames/s
-               of each; sharded_sgm_disparity on 2 shards (a 61 x 97 crop
-               and KITTI size) equal to the replicated plain disparity
+               of each; ShardedSurfelMapping (host pool, no graph) over the
+               60 frames equal to the dense host-pool SurfelMapping (1e-4
+               m, bank and pool); sharded_sgm_disparity on 2 shards (a
+               61 x 97 crop and KITTI size) equal to the replicated plain
+               disparity
  14. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
                (the seven outputs, MAE < 0.3 m, 3 SLIC launches of each
-               kernel per frame + 3 for the segmentation render),
+               kernel per frame + 3 for the segmentation render), the same
+               with --host-pool (MAE < 0.3 m),
                synthetic --stereo --sgm --eval (MAE < 0.5 m, B5/B6 once per
                frame), stress --frames 120 --radius 15 (post-correction MAE
                below pre-correction), kitti and replay over a generated
@@ -103,6 +119,7 @@ around its calls.  The last lines are the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -721,8 +738,10 @@ def check_map(rows: dict, drv, ground_y: float) -> dict:
 
 def check_warp(drv) -> float:
     """A loop_path shifting every keyframe by one translation must move
-    every live surfel by exactly that translation."""
+    every live surfel by exactly that translation: the bank's and, for a
+    host-pool driver, the inactive pool's."""
     before = drv._bank_host()
+    pool_before = drv.pool.all_surfels()["position"]
     shift = np.eye(4)
     shift[:3, 3] = (0.25, -0.5, 1.0)
     loop_path = [shift @ kf.cam_pose for kf in drv.graph.keyframes]
@@ -730,8 +749,10 @@ def check_warp(drv) -> float:
                   loop_path=loop_path)
     after = drv._bank_host()
     live = before["update_times"] > 0
-    moved = after["position"][live] - before["position"][live]
-    err = float(np.abs(moved - shift[:3, 3]).max())
+    moved = [after["position"][live] - before["position"][live],
+             drv.pool.all_surfels()["position"] - pool_before]
+    err = float(max(np.abs(m - shift[:3, 3]).max(initial=0.0)
+                    for m in moved))
     require(err < WARP_TOL_M, f"loop warp off by {err} m")
     return err
 
@@ -956,27 +977,39 @@ KERNEL_RECORDS = {
     "sgm_census_x": ("census_x_kernel",)}
 
 
+def device_record_names(prof) -> list:
+    """The names of a profiler window's device records (kernels, copies
+    and sets, not the scopes' device spans), from the raw records: parsing
+    them into FunctionEvents (`prof.events()`) takes seconds of host time
+    per 100k records, and a drive leaves 100k-200k."""
+    from torch.autograd import DeviceType
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
 def executed(fn):
     """fn() under the profiler, with every kernel count and the count of
     captured graphs set to 0 just before and read just after.  Returns
     (fn's result, {"calls": each wrapper's launches, "runs": each kernel's
-    device runs by the profiler's kernel records, "captures": graphs
-    captured}).  A captured step calls each wrapper twice per capture (the
-    warm-up and the capture itself) and never again: its replays launch the
-    kernels from the graph, and only the profiler sees them."""
-    from torch.autograd import DeviceType
+    device runs by the profiler's kernel records, "captures": fuse steps
+    captured, "programs": other bank programs captured (compaction,
+    migration, warps: no kernel of the six runs in them)}).  A captured
+    step calls each wrapper twice per capture (the warm-up and the capture
+    itself) and never again: its replays launch the kernels from the graph,
+    and only the profiler sees them."""
     from torch.profiler import ProfilerActivity, profile
     from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
-    FS.CAPTURES["graphs"] = 0
+    for kind in FS.CAPTURES:
+        FS.CAPTURES[kind] = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res, calls = counted(fn)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.is_user_annotation]
+    names = device_record_names(prof)
     runs = {k: sum(any(p in n for p in parts) for n in names)
             for k, parts in KERNEL_RECORDS.items()}
-    return res, dict(calls=calls, runs=runs,
-                     captures=FS.CAPTURES["graphs"])
+    return res, dict(calls=calls, runs=runs, captures=FS.CAPTURES["steps"],
+                     programs=FS.CAPTURES["programs"])
 
 
 def check_runs(ex: dict, per: dict, steps: int, what: str,
@@ -1006,15 +1039,26 @@ def check_runs(ex: dict, per: dict, steps: int, what: str,
 
 @functools.lru_cache(maxsize=1)
 def eager_classes():
-    """The eager references of the graphed drivers: DeviceResidentMapping
-    and MultiSessionMapping whose depth-fed and stereo steps run op by op
-    (`fuse_step.fuse_frame_onebuf` / `fuse_frame_stereo_onebuf`,
-    `multistream.batched_onebuf_step`) from one uploaded payload, as they
-    ran before the steps were captured."""
+    """The eager references of the graphed drivers, whose captured programs
+    run op by op on the uploaded inputs, as they ran before they were
+    captured: DeviceResidentMapping and MultiSessionMapping with the
+    depth-fed and stereo steps (`fuse_step.fuse_frame_onebuf` /
+    `fuse_frame_stereo_onebuf`, `multistream.batched_onebuf_step` /
+    `batched_stereo_onebuf_step`), compaction and the loop warp
+    (`fusion.compact_bank`, `warp_ops.warp_bank_by_pose`, the batched
+    ones); the host-pool SurfelMapping with its fuse steps
+    (`fuse_frame_compact`, `fuse_frame`, `fuse_frame_stereo_packed`),
+    compaction, the migration append and extract and the active warp."""
+    from densesurfelmapping_tpu_torch.core.state import (
+        FrameInput, compact_frame, pad_frame)
+    from densesurfelmapping_tpu_torch.ops import fusion, migration
+    from densesurfelmapping_tpu_torch.ops import warp as warp_ops
     from densesurfelmapping_tpu_torch.parallel import multistream
     from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.driver import (
+        SurfelMapping, _StereoPair)
     from densesurfelmapping_tpu_torch.pipeline.multi_session import (
         MultiSessionMapping)
 
@@ -1032,17 +1076,84 @@ def eager_classes():
                     self.bank, self._upload(buf))
             self._fused(stats)
 
+        def _do_compact(self):
+            fusion.compact_bank(self.bank)
+            self.compactions += 1
+
+        def _apply_pose_warp(self, wstack, mstack):
+            warp_ops.warp_bank_by_pose(
+                self.bank, self._to_device(wstack), self._to_device(mstack),
+                self._to_device(self._window_np), self._first_local)
+
     class EagerFleet(MultiSessionMapping):
         def _run_round(self, cfg, src):
-            if self._stereo_cfg is not None:
-                return super()._run_round(cfg, src)
             with self.timer.stage("upload"):
                 payload = self._upload(src)
             with self.timer.stage("dispatch"):
+                if self._stereo_cfg is not None:
+                    return multistream.batched_stereo_onebuf_step(
+                        cfg, self._stereo_cfg, self._stereo_filter,
+                        self.banks, payload)
                 return multistream.batched_onebuf_step(cfg, self.banks,
                                                        payload)
 
-    return EagerDriver, EagerFleet
+        def compact(self):
+            self._flush_round()
+            multistream.batched_compact(self.banks)
+            self.compactions += 1
+
+        def _apply_warps(self, wstack, mstack, masks, firsts):
+            multistream.batched_warp(*(self.banks,) + tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (wstack, mstack, masks, firsts)))
+
+    class EagerHostPool(SurfelMapping):
+        def _fuse_frame(self, image, depth, pose, ref_index):
+            pose_dev = self._to_device(
+                np.asarray(pose, np.float32).reshape(4, 4))
+            index = self._to_device(np.array(ref_index, np.int32))
+            if isinstance(depth, _StereoPair):
+                _, stats = FS.fuse_frame_stereo_packed(
+                    self.config, self._stereo_cfg, self._stereo_filter,
+                    self.bank, self._to_device(depth.buf), pose_dev, index,
+                    self._to_device(np.array(self._stereo_bf, np.float32)))
+            elif self.config.compact_upload:
+                ci, cd = compact_frame(self.config, image, depth)
+                _, stats = FS.fuse_frame_compact(
+                    self.config, self.bank, self._to_device(ci),
+                    self._to_device(cd), pose_dev, index)
+            else:
+                pi, pd = pad_frame(self.config,
+                                   np.asarray(image, np.float32),
+                                   np.asarray(depth, np.float32))
+                _, stats = FS.fuse_frame(self.config, self.bank, FrameInput(
+                    image=self._to_device(pi), depth=self._to_device(pd),
+                    pose=pose_dev, frame_index=index))
+            self._fuse_epilogue(stats)
+
+        def _do_compact(self):
+            fusion.compact_bank(self.bank)
+            self.compactions += 1
+
+        def _extract_chunk(self, ids):
+            buf, n = migration.extract_by_pose(
+                self.bank, self._to_device(ids), self.config.migration_buffer)
+            n = int(n)
+            if n == 0:
+                return {}, 0
+            return {k: v[:n].cpu().numpy() for k, v in buf.items()}, n
+
+        def _append_hostslab(self, padded, n):
+            mask = torch.arange(self.config.migration_buffer,
+                                device=self.device) < n
+            fusion.append_new(self.bank, {k: self._to_device(v)
+                                          for k, v in padded.items()}, mask)
+
+        def _apply_active_warp(self, warp):
+            warp_ops.warp_active(self.bank, self._to_device(
+                np.asarray(warp, np.float32)))
+
+    return EagerDriver, EagerFleet, EagerHostPool
 
 
 def phase_cli(device, drive_frames) -> dict:
@@ -1152,6 +1263,28 @@ def phase_cli(device, drive_frames) -> dict:
         f"{int(ckpt['bank_count'])} surfels in the checkpoint, MAE "
         f"{fid['mae']} m (< {LOOP_MAE_M}); {ex['captures']} graph(s) "
         f"captured, device runs {ex['runs']}")
+
+    # the same with the host-pool driver (SurfelMapping on its graphs)
+    hp = f"{CLI_DIR}/loop_host_pool"
+    (rc, out, _), ex = executed(lambda: run_cli(
+        ["synthetic", "--frames", "60", "--loop", "--kf-every", "2", "--eval",
+         "--host-pool", "--out", hp]))
+    add(ex["runs"])
+    require(rc == 0, f"synthetic --loop --host-pool: rc {rc}")
+    fid = cli_json(out, "fidelity: ")
+    require(fid.get("mae", float("inf")) < LOOP_MAE_M,
+            f"synthetic --loop --host-pool: fidelity MAE {fid.get('mae')} "
+            f">= {LOOP_MAE_M}")
+    fused = frames_fused(out)
+    require(ex["captures"] == 1, f"synthetic --loop --host-pool: "
+            f"{ex['captures']} fuse steps captured")
+    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0,
+                        **{k: cfg.sp_iters for k in SLIC}), fused,
+               f"synthetic --loop --host-pool ({fused} frames + the "
+               f"segmentation render)", eager=1)
+    say("cli", f"synthetic --loop --host-pool: rc 0, MAE {fid['mae']} m "
+        f"(< {LOOP_MAE_M}); 1 fuse step and {ex['programs']} bank "
+        f"program(s) captured, device runs {ex['runs']}")
 
     # 3. stereo-resident, census SGM
     st = f"{CLI_DIR}/stereo"
@@ -1314,22 +1447,24 @@ def phase_cli(device, drive_frames) -> dict:
     say("cli", f"multi --streams 4 --frames 20: rc 0, per-session clouds "
         f"and checkpoints written; device runs {ex['runs']}")
 
-    # 7. the stereo fleet through the CLI
+    # 7. the stereo fleet through the CLI: its round replayed from a graph
     ms = f"{CLI_DIR}/multi_stereo"
-    (rc, out, _), n = counted(lambda: run_cli(
+    (rc, out, _), ex = executed(lambda: run_cli(
         ["multi", "--streams", "2", "--frames", "8", "--stereo", "--sgm",
          "--out", ms]))
-    add(n)
+    add(ex["runs"])
     require(rc == 0, f"multi --stereo: rc {rc}")
-    require(n["sgm_census_x"] == n["sgm_census_y"] == 16
-            and n["slic_assign"] == cfg.sp_iters * 8,
-            f"multi --stereo --sgm: launches {n}, want B5/B6 16 (2 streams "
-            f"x 8 rounds) and {cfg.sp_iters * 8} of each SLIC kernel")
+    require(ex["captures"] == 1, f"multi --stereo: {ex['captures']} "
+            f"captures")
+    check_runs(ex, dict(sgm_census_x=2, sgm_census_y=2, sgm_axis_scan=0,
+                        **{k: cfg.sp_iters for k in SLIC}), 8,
+               "multi --stereo --sgm (B5/B6 once per stream and SLIC "
+               f"{cfg.sp_iters}x per round, 8 rounds of 2 streams)")
     for k in range(2):
         require(int(np.load(f"{ms}_s{k}.ckpt.npz")["bank_count"]) > 0,
                 f"multi --stereo: session {k}'s map is empty")
-    say("cli", f"multi --streams 2 --frames 8 --stereo --sgm: rc 0; "
-        f"launches {n}")
+    say("cli", f"multi --streams 2 --frames 8 --stereo --sgm: rc 0; the "
+        f"round replayed from 1 graph, device runs {ex['runs']}")
 
     # 8. serve in a subprocess (the default --device cuda), fed by publish
     # in this process over a unix socket
@@ -1751,63 +1886,119 @@ def phase_multi(device, frames, smi: str) -> dict:
     return dict(launches=ex["runs"], rates=rates)
 
 
-def phase_multi_stereo(device, pairs) -> dict:
-    """The stereo fleet: 2 streams x N_STEREO_ROUNDS rounds of pairs with
-    the CLI's --sgm matcher under the sync check; B5/B6 once per stream and
-    round, the SLIC kernels once per sweep and round, each session's map
-    equal to a solo stereo DeviceResidentMapping within 1e-4 m."""
+def drive_stereo_fleet(config, pairs, device, n_streams: int, rounds: int,
+                       sync_checked: bool = False, cls=None) -> tuple:
+    """A stereo MultiSessionMapping (or `cls`) with the CLI's --sgm matcher
+    over `rounds` rounds: stream k fuses pairs k, k + 1, ... (keyframe every
+    2nd round); the first round (its capture), then the steady rounds under
+    the sync check if asked.  Returns (fleet, aggregate frames/s of the
+    steady rounds)."""
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+    multi = (cls or MultiSessionMapping)(config, n_streams, device=device)
+    multi.enable_stereo(bf=config.camera.fx * BASELINE_M,
+                        stereo_config=sgm_config())
+
+    def round_(i):
+        for k in range(n_streams):
+            li, ri, _, pose = pairs[k + i]
+            multi.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
+            multi.feed_stereo(k, float(i), li, ri)
+        multi.step()
+
+    def rest():
+        for i in range(1, rounds):
+            round_(i)
+
+    fps = steady(lambda: round_(0), rest, multi.flush_rounds, sync_checked,
+                 n_streams * (rounds - 1))
+    return multi, fps
+
+
+def phase_multi_stereo(device, pairs, smi: str) -> dict:
+    """The stereo fleet with the CLI's --sgm matcher, its round replayed
+    from one captured graph (`multistream.graphed_stereo_onebuf_step`), at
+    B = 2 and 4 streams x N_STEREO_ROUNDS rounds under the sync check after
+    the first round: each session torch.equal to the eager fleet's
+    (`eager_classes`); B5/B6 B times and the SLIC kernels once per sweep
+    (3 times) per round, by the profiler's kernel records; at B = 2 each
+    session within 1e-4 m of a solo stereo DeviceResidentMapping.  Measures
+    aggregate frames/s graphed and eager (median of N_RATE), the capture,
+    the graph pool and the peak device memory.  Returns the device runs of
+    the kernels in its graphed drives."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
+    from densesurfelmapping_tpu_torch.parallel.multistream import stream_bank
     from densesurfelmapping_tpu_torch.pipeline.multi_session import (
         MultiSessionMapping)
 
+    _, EagerFleet, _ = eager_classes()
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
-    B, R = 2, N_STEREO_ROUNDS
-
-    def run(sync_checked, rounds):
-        multi = MultiSessionMapping(cfg, B, device=device)
-        multi.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
-                            stereo_config=sgm_config())
+    R = N_STEREO_ROUNDS
+    total: dict = {}
+    for B in (2, 4):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if sync_checked:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            for i in range(rounds):
-                for k in range(B):
-                    li, ri, _, pose = pairs[k + i]
-                    multi.feed_pose(k, float(i), pose,
-                                    is_keyframe=(i % 2 == 0))
-                    multi.feed_stereo(k, float(i), li, ri)
-                multi.step()
-        finally:
-            if sync_checked:
-                torch.cuda.set_sync_debug_mode(0)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (g, _), ex = executed(lambda: drive_stereo_fleet(
+            cfg, pairs, device, B, R, sync_checked=True))
         torch.cuda.synchronize()
-        return multi, B * rounds / (time.perf_counter() - t0)
-
-    run(False, 1)
-    (multi, fps), n = counted(lambda: run(True, R))
-    require(n["sgm_census_x"] == n["sgm_census_y"] == B * R
-            and n["sgm_axis_scan"] == 0,
-            f"stereo fleet: B5/B6 not once per stream and round: {n}")
-    require(all(n[k] == cfg.sp_iters * R for k in ("slic_assign",
-                                                   "slic_centroid",
-                                                   "slic_huber")),
-            f"stereo fleet: SLIC kernels not {cfg.sp_iters}x per round: {n}")
-    errs = []
-    for k in range(B):
-        solo, _ = drive_stereo(cfg, pairs[k:k + R], device, sgm_config(),
-                               False)
-        errs.append(same_rows_within(
-            fleet_rows(multi, k), bank_to_numpy(solo.bank),
-            STEREO_FLEET_TOL_M, f"stereo fleet session {k} vs a solo "
-            f"stereo DeviceResidentMapping"))
-    say("multi-stereo", f"{B} streams x {R} rounds: {fps:.2f} frames/s "
-        f"aggregate (to a device synchronize); launches {n}; steady feed "
-        f"raised no host-device sync; each session equals a solo stereo "
-        f"drive within {max(errs):.3g} m (bound {STEREO_FLEET_TOL_M})")
-    return n
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        pool = tuple(g._graph_pool.id)
+        held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        for k, v in ex["runs"].items():
+            total[k] = total.get(k, 0) + v
+        require(ex["captures"] == 1, f"stereo fleet B={B}: "
+                f"{ex['captures']} captures")
+        check_runs(ex, dict(sgm_census_x=B, sgm_census_y=B, sgm_axis_scan=0,
+                            **{k: cfg.sp_iters for k in SLIC}), R,
+                   f"stereo fleet B={B} (B5/B6 once per stream, SLIC "
+                   f"{cfg.sp_iters}x per round)")
+        e, e_fps = drive_stereo_fleet(cfg, pairs, device, B, R,
+                                      cls=EagerFleet)
+        for k in range(B):
+            require(same_banks(stream_bank(g.banks, k),
+                               stream_bank(e.banks, k)),
+                    f"stereo fleet B={B}: graphed session {k} != the eager "
+                    f"fleet's (torch.equal)")
+        errs = []
+        if B == 2:
+            for k in range(B):
+                solo, _ = drive_stereo(cfg, pairs[k:k + R], device,
+                                       sgm_config(), False)
+                errs.append(same_rows_within(
+                    fleet_rows(g, k), bank_to_numpy(solo.bank),
+                    STEREO_FLEET_TOL_M, f"stereo fleet session {k} vs a solo "
+                    f"stereo DeviceResidentMapping"))
+        capture_ms = g._round.capture_ms
+        del g, e
+        # the eager reference's drive is the first eager sample
+        fps = {"graphed": [], "eager": [e_fps]}
+        for _ in range(N_RATE):
+            for name, cls in (("graphed", MultiSessionMapping),
+                              ("eager", EagerFleet)):
+                if len(fps[name]) < N_RATE:
+                    fps[name].append(drive_stereo_fleet(
+                        cfg, pairs, device, B, R, cls=cls)[1])
+        med = {k: sorted(v)[1] for k, v in fps.items()}
+        solo = (f"; each session within {max(errs):.3g} m of a solo stereo "
+                f"drive (bound {STEREO_FLEET_TOL_M})" if errs else "")
+        say("multi-stereo", f"B = {B} streams x {R} rounds (2^19 rows per "
+            f"stream): each session torch.equal to the eager fleet's; 1 "
+            f"round capture ({capture_ms:.1f} ms, warm-up + capture, host "
+            f"clock), device runs {ex['runs']} (B5/B6 {B}x and each SLIC "
+            f"kernel {cfg.sp_iters}x per round); steady rounds raised no "
+            f"host-device sync{solo}")
+        say("multi-stereo", f"B = {B}: aggregate {med['graphed']:.2f} "
+            f"frames/s graphed, {med['eager']:.2f} eager (median of {N_RATE} "
+            f"drives of {R} rounds, steady after the first: graphed "
+            + ", ".join(f"{x:.2f}" for x in sorted(fps["graphed"]))
+            + "; eager " + ", ".join(f"{x:.2f}" for x in sorted(fps["eager"]))
+            + f"); graph pool {held / 2**20:.1f} MiB, peak device memory "
+            f"{peak:.1f} MiB above what was allocated (banks, capture and "
+            f"drive; torch.cuda.max_memory_allocated) ({smi})")
+    return total
 
 
 def device_activity(events) -> tuple:
@@ -2016,9 +2207,37 @@ def first_step_memory(drv, step, flush) -> dict:
                 pool_mib=held / 2**20)
 
 
+@contextlib.contextmanager
+def captures_timed():
+    """Within, every graph capture starts after a device synchronize, and
+    the host seconds of the capture itself (its warm-up run and the
+    capture) are summed into the yielded list's one entry, so that a rate
+    can take a capture at a program's first use out of a steady feed; the
+    drain of the work queued before it stays in the rate."""
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    spent = [0.0]
+    capture = FS.capture
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return capture(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    FS.capture = timed
+    try:
+        yield spent
+    finally:
+        FS.capture = capture
+
+
 def rated(make, frames, pairs, streams: int, n: int) -> tuple:
     """A fresh driver's steady feed of steps 1..n-1 after its first step:
-    (frames/s, host ms per frame or round by StageTimer stage)."""
+    (frames/s with the graph captures in the feed taken out (`captures_
+    timed`: compaction's, at its first use), host ms per frame or round by
+    StageTimer stage)."""
     from densesurfelmapping_tpu_torch.utils.timing import StageTimer
     drv = make()
     step, flush = steps_of(drv, frames, pairs, streams)
@@ -2026,13 +2245,217 @@ def rated(make, frames, pairs, streams: int, n: int) -> tuple:
     flush()
     torch.cuda.synchronize()
     drv.timer = StageTimer()
-    t0 = time.perf_counter()
-    for i in range(1, n):
-        step(i)
-    flush()
-    torch.cuda.synchronize()
-    fps = max(streams, 1) * (n - 1) / (time.perf_counter() - t0)
-    return fps, drv.timer.means_ms()
+    with captures_timed() as spent:
+        t0 = time.perf_counter()
+        for i in range(1, n):
+            step(i)
+        flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0 - spent[0]
+    return max(streams, 1) * (n - 1) / secs, drv.timer.means_ms()
+
+
+HOST_POOL_LOOP = 40     # this frame's keyframe links back to keyframe 1
+HOST_POOL_SLACK = 1 << 12   # compaction_slack of the host-pool drives
+N_B4_PAIRS = 4          # pairs of the host-pool drive of the B4 matcher
+HOST_POOL_READS = ("sync_stats", "_bank_count", "_extract_chunk")
+HOST_POOL_GRAPHS = ("_fuse_graph", "_stereo_graph", "_compact_graph",
+                    "_append_graph", "_extract_graph", "_warp_graph")
+
+
+@contextlib.contextmanager
+def reads_allowed(drv, names=HOST_POOL_READS):
+    """Within the sync check, let the driver's methods `names` and every
+    graph capture synchronise: the reads the host-pool driver makes by
+    design (the stats and the bank's count at stats frames, the match
+    count of a migration: the JAX driver makes the same reads) and a
+    capture's first-call synchronisation; the rest of the feed must raise
+    none.  Yields {name: calls}, "capture" included."""
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    calls = dict.fromkeys(names + ("capture",), 0)
+
+    def allow(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return run
+
+    for name in names:
+        setattr(drv, name, allow(name, getattr(drv, name)))
+    capture = FS.capture
+    FS.capture = allow("capture", capture)
+    try:
+        yield calls
+    finally:
+        FS.capture = capture
+        for name in names:
+            delattr(drv, name)
+
+
+def host_pool_feeder(drv, frames, pairs=None):
+    """one(i): feed depth frame (or stereo pair) i to a host-pool driver,
+    keyframe every 2nd frame; frame HOST_POOL_LOOP's keyframe carries a
+    loop edge back to keyframe 1, which brings its window's keyframes back
+    from the pool (the migration append)."""
+    def one(i):
+        kf = i % 2 == 0
+        edges = [(i // 2, 1)] if kf and i == HOST_POOL_LOOP else ()
+        if pairs is not None:
+            li, ri, _, pose = pairs[i]
+            drv.feed_pose(float(i), pose, is_keyframe=kf, loop_edges=edges)
+            drv.feed_stereo(float(i), li, ri)
+            return
+        img, dep, pose = frames[i]
+        drv.feed_pose(float(i), pose, is_keyframe=kf, loop_edges=edges)
+        drv.feed_image(float(i), img)
+        drv.feed_depth(float(i), dep)
+    return one
+
+
+def drive_host_pool(cls, config, device, frames, pairs=None, scfg=None,
+                    sync_checked=False) -> tuple:
+    """A host-pool driver over the frames (or pairs), the feed after the
+    first frame under the sync check if asked, with the driver's reads
+    allowed (`reads_allowed`).  Returns (driver, steady frames/s with the
+    graph captures in the feed taken out (`captures_timed`), host ms per
+    frame by StageTimer stage, {read: calls, "frames": frames after the
+    first, "reading": those of them that read the device})."""
+    from densesurfelmapping_tpu_torch.utils.timing import StageTimer
+    drv = cls(config, device=device)
+    if scfg is not None:
+        drv.enable_stereo(bf=config.camera.fx * BASELINE_M,
+                          stereo_config=scfg)
+    one = host_pool_feeder(drv, frames, pairs)
+    n = len(pairs if pairs is not None else frames)
+    reading = [0]
+    # captures_timed outside reads_allowed: its synchronize runs with the
+    # sync check off
+    with captures_timed() as spent, reads_allowed(drv) as calls:
+        def first():
+            one(0)
+            drv.timer = StageTimer()
+            spent.append(spent[0])      # the first frame's capture
+
+        def rest():
+            for i in range(1, n):
+                before = sum(calls.values())
+                one(i)
+                reading[0] += sum(calls.values()) > before
+
+        fps = steady(first, rest, lambda: None, sync_checked, n - 1)
+    secs = (n - 1) / fps - (spent[0] - spent[1])
+    return (drv, (n - 1) / secs, drv.timer.means_ms(),
+            dict(calls, frames=n - 1, reading=reading[0]))
+
+
+def same_pool(a, b) -> bool:
+    """The two host pools hold the same slabs, array for array."""
+    return set(a.slabs) == set(b.slabs) and all(
+        np.array_equal(a.slabs[k][f], b.slabs[k][f])
+        for k in a.slabs for f in a.slabs[k])
+
+
+def phase_graph_host_pool(device, frames, pairs, smi: str) -> dict:
+    """The host-pool SurfelMapping on its graphs (fuse step, compaction,
+    migration append and extract, active warp) against its eager reference
+    (`eager_classes`): the depth-fed drive over the frames with the compact
+    upload and with the padded f32 upload, the stereo drive over the pairs
+    with the CLI's --sgm matcher, and N_B4_PAIRS pairs with the
+    materialized matcher (B4), each under the sync check with the
+    driver's reads allowed; the bank torch.equal and the pool's arrays
+    equal, before and after a loop warp; graphed and eager frames/s
+    (median of N_RATE), host ms by stage, captures.  Returns the device
+    runs of the kernels in its graphed drives."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
+
+    _, _, EagerHostPool = eager_classes()
+    cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16,
+                       compaction_slack=HOST_POOL_SLACK)
+    scfg = sgm_config()
+    slic = {k: cfg.sp_iters for k in SLIC}
+    no_sgm = dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0)
+    total: dict = {}
+    drives = (
+        ("depth-fed, compact upload", cfg, frames, None, None,
+         dict(no_sgm, **slic)),
+        ("depth-fed, padded f32 upload",
+         dataclasses.replace(cfg, compact_upload=False), frames, None, None,
+         dict(no_sgm, **slic)),
+        ("stereo --sgm", cfg, None, pairs, scfg,
+         dict(slic, sgm_census_x=1, sgm_census_y=1, sgm_axis_scan=0)),
+        ("stereo, materialized volume (B4)", cfg, None, pairs[:N_B4_PAIRS],
+         scfg._replace(sgm_fused_census=False),
+         dict(slic, sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=2)))
+    for tag, c, fr, pr, sc, per in drives:
+        n = len(pr if pr is not None else fr)
+        (g, _, _, reads), ex = executed(lambda: drive_host_pool(
+            SurfelMapping, c, device, fr, pr, sc, sync_checked=True))
+        for k, v in ex["runs"].items():
+            total[k] = total.get(k, 0) + v
+        require(ex["captures"] == 1, f"host pool {tag}: {ex['captures']} "
+                f"fuse steps captured")
+        check_runs(ex, per, n, f"host pool {tag}")
+        e, e_fps, e_stages, _ = drive_host_pool(EagerHostPool, c, device,
+                                                fr, pr, sc)
+        require(same_banks(g.bank, e.bank) and same_pool(g.pool, e.pool),
+                f"host pool {tag}: graphed != eager (bank torch.equal, pool "
+                f"arrays equal)")
+        rows = g._bank_host()
+        for k in ("position", "normal", "size", "weight"):
+            require(bool(np.isfinite(rows[k]).all()),
+                    f"host pool {tag}: NaN/Inf in bank.{k}")
+        werr = check_warp(g)
+        check_warp(e)
+        require(same_banks(g.bank, e.bank) and same_pool(g.pool, e.pool),
+                f"host pool {tag}: after the loop warp graphed != eager")
+        replays = {name: getattr(g, f"_{name}_graph").replays for name in
+                   ("compact", "extract", "append", "warp")}
+        require(replays["warp"] == 1 and replays["compact"] == g.compactions,
+                f"host pool {tag}: replays {replays}, {g.compactions} "
+                f"compactions")
+        if n > HOST_POOL_LOOP:     # the full depth-fed drives
+            require(g.compactions > 0 and replays["extract"] > 0
+                    and replays["append"] > 0 and len(g.pool) > 0,
+                    f"host pool {tag}: compaction, migration or "
+                    f"re-activation missing: replays {replays}, pool "
+                    f"{len(g.pool)}")
+        # the eager reference's drive is the first eager sample
+        fps = {"graphed": [], "eager": [e_fps]}
+        stages = {"eager": e_stages}
+        for _ in range(N_RATE):
+            for name, cls in (("graphed", SurfelMapping),
+                              ("eager", EagerHostPool)):
+                if len(fps[name]) < N_RATE:
+                    _, r, stages[name], _ = drive_host_pool(cls, c, device,
+                                                            fr, pr, sc)
+                    fps[name].append(r)
+        med = {k: sorted(v)[1] for k, v in fps.items()}
+        say("graph", f"host pool {tag}, {n} frames: bank torch.equal and "
+            f"pool ({len(g.pool)} surfels, {len(g.pool.slabs)} keyframes) "
+            f"equal to the eager reference's, before and after a loop warp "
+            f"(within {werr:.2e} m of the shift); replays {replays} "
+            f"({g.compactions} compactions); captures: 1 fuse step "
+            f"({(g._stereo_graph or g._fuse_graph).capture_ms:.1f} ms) + "
+            f"{ex['programs']} bank programs in the feed; device runs "
+            f"{ex['runs']}; sync check: {reads['frames'] - reads['reading']} "
+            f"of {reads['frames']} frames after the first read nothing, the "
+            f"rest only in {', '.join(f'{k} x{reads[k]}' for k in HOST_POOL_READS + ('capture',))}")
+        for name in fps:
+            say("graph", f"host pool {tag} {name}: {med[name]:.2f} frames/s "
+                f"(median of {N_RATE} drives, steady after the first frame"
+                f", graph captures taken out: "
+                + ", ".join(f"{x:.2f}" for x in sorted(fps[name]))
+                + f"); host ms per frame by stage: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            sorted(stages[name].items())) + f" ({smi})")
+        del g, e
+    return total
 
 
 def phase_graph(device, frames, pairs, smi: str) -> dict:
@@ -2060,7 +2483,7 @@ def phase_graph(device, frames, pairs, smi: str) -> dict:
     from densesurfelmapping_tpu_torch.pipeline.multi_session import (
         MultiSessionMapping)
 
-    Eager, EagerFleet = eager_classes()
+    Eager, EagerFleet, _ = eager_classes()
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     cfg_f = kitti_config(surfel_capacity=1 << 21, compact_interval=16)
     scfg = sgm_config()
@@ -2105,13 +2528,19 @@ def phase_graph(device, frames, pairs, smi: str) -> dict:
     check_warp(e)
     require(same_banks(g.bank, e.bank), "after the loop warp: graphed != "
             "eager")
+    replays = (g._compact_graph.replays, g._pose_warp_graph.replays)
+    require(replays == (g.compactions, 1) and g.compactions > 0,
+            f"depth-fed: compaction and warp replays {replays}, want "
+            f"({g.compactions}, 1)")
     say("graph", f"depth-fed, {len(frames)} frames: every bank field "
         f"torch.equal to the eager drive's, before and after the loop warp "
         f"(within {werr:.2e} m of the shift); {st['live']} live, ground "
-        f"err {st['ground_err_m']:.3e} m, {st['compactions']} compactions "
-        f"between replays; 1 capture ({g._fuse_graph.capture_ms:.1f} ms), "
-        f"wrapper calls {ex['calls']}, device runs {ex['runs']}; steady "
-        f"feed raised no host-device sync")
+        f"err {st['ground_err_m']:.3e} m; compaction replayed "
+        f"{replays[0]} times and the loop warp {replays[1]} time from their "
+        f"graphs ({ex['programs']} bank program captured in the feed, the "
+        f"warp's at the loop); 1 step capture "
+        f"({g._fuse_graph.capture_ms:.1f} ms), wrapper calls {ex['calls']}, "
+        f"device runs {ex['runs']}; steady feed raised no host-device sync")
 
     # the stereo drive
     (gs, _), ex = executed(lambda: drive_stereo(cfg, pairs, device, scfg,
@@ -2182,13 +2611,25 @@ def phase_graph(device, frames, pairs, smi: str) -> dict:
     check_runs(ex, dict(no_sgm, **slic), N_ROUNDS, "graphed fleet")
     ef, _ = drive_fleet(cfg_f, frames, device, N_STREAMS, N_ROUNDS,
                         cls=EagerFleet)
+    shift = np.eye(4)
+    shift[:3, 3] = (0.25, -0.5, 1.0)
+    for m in (gf, ef):      # a loop warp of session 0, batched
+        kfs = m.sessions[0].graph.keyframes
+        m.feed_pose(0, 1e6, shift @ kfs[-1].cam_pose,
+                    loop_path=[shift @ kf.cam_pose for kf in kfs])
     for k in range(N_STREAMS):
         require(same_banks(stream_bank(gf.banks, k), stream_bank(ef.banks, k)),
                 f"graphed fleet session {k} != the eager fleet's")
-    say("graph", f"fleet, {N_STREAMS} streams x {N_ROUNDS} rounds: each "
-        f"session torch.equal to the eager fleet's; 1 capture "
-        f"({gf._round.capture_ms:.1f} ms), device runs {ex['runs']}; steady "
-        f"rounds raised no host-device sync")
+    replays = (gf._compact_graph.replays, gf._warp_graph.replays)
+    require(replays == (gf.compactions, 1) and gf.compactions > 0,
+            f"fleet: compaction and warp replays {replays}, want "
+            f"({gf.compactions}, 1)")
+    say("graph", f"fleet, {N_STREAMS} streams x {N_ROUNDS} rounds and a "
+        f"loop warp of session 0: each session torch.equal to the eager "
+        f"fleet's; 1 round capture ({gf._round.capture_ms:.1f} ms), the "
+        f"batched compaction replayed {replays[0]} time(s) and the batched "
+        f"warp {replays[1]} time from their graphs; device runs "
+        f"{ex['runs']}; steady rounds raised no host-device sync")
     del g, e, gs, es, gr, er, gc, gf, ef
 
     # rates, host stages, device profile and memory: graphed against eager
@@ -2221,7 +2662,7 @@ def phase_graph(device, frames, pairs, smi: str) -> dict:
             runs = sorted(fps[name])
             say("graph", f"{tag} {name}: {runs[1]:.2f} frames/s (median of "
                 f"{N_RATE} drives of {n} {'rounds' if streams else 'frames'}"
-                f", steady after the first: "
+                f", steady after the first, graph captures taken out: "
                 + ", ".join(f"{x:.2f}" for x in runs)
                 + f"); host ms per {'round' if streams else 'frame'} by "
                 f"stage: " + ", ".join(f"{k} {v:.3f}" for k, v in
@@ -2257,10 +2698,8 @@ SLIC = ("slic_assign", "slic_centroid", "slic_huber")
 
 def slic_records(prof) -> dict:
     """Kernel records of each SLIC kernel in a profiler window."""
-    from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not e.is_user_annotation]
-    return {k: sum(f"{k}_kernel" in e.name for e in dev) for k in SLIC}
+    names = device_record_names(prof)
+    return {k: sum(f"{k}_kernel" in n for n in names) for k in SLIC}
 
 
 def phase_batch(device, frames) -> dict:
@@ -2379,13 +2818,17 @@ def phase_batch(device, frames) -> dict:
     return total
 
 
-def sharded_rows(drv) -> dict:
-    """A driver's live bank rows, sorted (the order differs between
-    layouts)."""
-    rows = drv._bank_host()
+def sharded_rows_of(rows: dict) -> dict:
+    """The live rows of host rows, sorted by position (the order differs
+    between layouts)."""
     live = rows["update_times"] > 0
     order = np.lexsort(rows["position"][live].T[::-1])
     return {k: v[live][order] for k, v in rows.items()}
+
+
+def sharded_rows(drv) -> dict:
+    """A driver's live bank rows, sorted."""
+    return sharded_rows_of(drv._bank_host())
 
 
 def same_map(a: dict, b: dict, what: str) -> float:
@@ -2499,6 +2942,53 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     say("sharded", f"stereo ({N_SHARDED_STEREO} pairs, --sgm) under the "
         f"sync check: {len(smaps['sharded']['color'])} surfels == the dense "
         f"stereo drive's within {err:.3g} m; B5/B6 once per frame per shard")
+
+    # the host-pool driver over the mesh: eager mesh programs, no graph,
+    # against the dense host-pool SurfelMapping (its graphs) fed the same
+    # padded f32 frames (the sharded driver has no compact upload)
+    from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
+    from densesurfelmapping_tpu_torch.pipeline.sharded_driver import (
+        ShardedSurfelMapping)
+    hp_cfg = dataclasses.replace(cfg, compaction_slack=HOST_POOL_SLACK,
+                                 compact_upload=False)
+    hp = {}
+    for kind in ("dense", "sharded"):
+        make = ((lambda: SurfelMapping(hp_cfg, device=device))
+                if kind == "dense" else
+                (lambda: ShardedSurfelMapping(hp_cfg, mesh)))
+        warm = host_pool_feeder(make(), drive_frames)
+        warm(0)
+        warm(1)
+        drv = make()
+        one = host_pool_feeder(drv, frames)
+        t0 = time.perf_counter()
+        (_, n) = counted(lambda: [one(i) for i in range(len(frames))])
+        torch.cuda.synchronize()
+        hp[kind] = dict(drv=drv, secs=time.perf_counter() - t0,
+                        bank=sharded_rows(drv),
+                        pool=sharded_rows_of(drv.pool.all_surfels()))
+        if kind == "sharded":
+            add(n)
+            require(all(getattr(drv, g) is None for g in HOST_POOL_GRAPHS),
+                    "sharded host pool: a graph was built")
+            require(all(n[k] == cfg.sp_iters * len(frames) * n_sh
+                        for k in SLIC), f"sharded host pool: SLIC launches "
+                    f"{n}")
+    err = max(same_map(hp["sharded"]["bank"], hp["dense"]["bank"],
+                       "sharded host pool bank"),
+              same_map(hp["sharded"]["pool"], hp["dense"]["pool"],
+                       "sharded host pool pool"))
+    sh = hp["sharded"]["drv"]
+    say("sharded", f"ShardedSurfelMapping (host pool, eager mesh programs, "
+        f"no graph built), {len(frames)} KITTI frames (migrations and the "
+        f"re-activation of `host_pool_feeder`): bank "
+        f"({len(hp['sharded']['bank']['color'])} surfels) and pool "
+        f"({len(sh.pool)} surfels) == the dense host-pool SurfelMapping's "
+        f"within {err:.3g} m (bound {SHARDED_TOL_M}); loop warp within "
+        f"{check_warp(sh):.2e} m; {len(frames) / hp['sharded']['secs']:.2f} "
+        f"frames/s against the dense driver's graphs' "
+        f"{len(frames) / hp['dense']['secs']:.2f} (first frame and "
+        f"captures included; {label})")
 
     # sharded_sgm_disparity: bitwise the replicated plain disparity
     scfg = sgm_config()._replace(sgm_pallas=False)
@@ -2640,12 +3130,13 @@ def main() -> None:
         if pairs is None:
             pairs = make_pairs(cfg, N_STEREO_FRAMES)
         add(phase_graph(device, frames, pairs, smi))
+        add(phase_graph_host_pool(device, frames, pairs, smi))
         lap("graph")
     if run("multi"):
         add(phase_multi(device, frames, smi)["launches"])
         lap("multi")
     if run("multi-stereo"):
-        add(phase_multi_stereo(device, pairs))
+        add(phase_multi_stereo(device, pairs, smi))
         lap("multi-stereo")
     if run("batch"):
         add(phase_batch(device, frames))

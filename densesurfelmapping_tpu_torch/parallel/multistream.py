@@ -212,6 +212,23 @@ def batched_stereo_onebuf_step(config: SurfelMapConfig, stereo_config,
     return stats
 
 
+def graphed_stereo_onebuf_step(config: SurfelMapConfig, stereo_config,
+                               filter_depth: bool, banks: SurfelBank,
+                               pool=None) -> fuse_step.StepGraph:
+    """`batched_stereo_onebuf_step` on `banks` as a `fuse_step.StepGraph`
+    over the round's (B, 2 h w + 72 + P) payload: the B prior renders and
+    matcher passes (B5/B6 once per stream) and the one vmapped fuse step
+    (B1-B3's batched launches) in one captured graph replayed once per
+    round.  The counterpart of the JAX fleet's jitted
+    `_batched_stereo_onebuf_step` (densesurfelmapping_tpu/pipeline/
+    multi_session.py:90-96)."""
+    return fuse_step.StepGraph(
+        lambda bk, buf: batched_stereo_onebuf_step(
+            config, stereo_config, filter_depth, bk, buf), banks,
+        (banks.count.shape[0], fuse_step.stereo_onebuf_bytes(config)), pool,
+        keep=fuse_step.step_geometry(config, banks))
+
+
 def batched_warp(banks: SurfelBank, warps: torch.Tensor, moved: torch.Tensor,
                  pose_masks: torch.Tensor, first_locals: torch.Tensor
                  ) -> None:
@@ -232,3 +249,23 @@ def batched_compact(banks: SurfelBank) -> None:
         return bank.count          # vmap needs an output; unused
     _vmap_banks(one)(banks)
 
+
+def graphed_warp(config: SurfelMapConfig, banks: SurfelBank,
+                 pool=None) -> fuse_step.BankGraph:
+    """`batched_warp` on `banks` as a `fuse_step.BankGraph` (the JAX
+    fleet's jitted `_batched_warp`, densesurfelmapping_tpu/pipeline/
+    multi_session.py:99-103).  Inputs, with P = config.max_keyframes:
+    warps (B, P, 4, 4) f32, moved (B, P) bool, window masks (B, P) bool and
+    first locals (B,) i32."""
+    b, p = banks.count.shape[0], config.max_keyframes
+    return fuse_step.BankGraph(
+        batched_warp, banks, (((b, p, 4, 4), torch.float32),
+                              ((b, p), torch.bool), ((b, p), torch.bool),
+                              ((b,), torch.int32)), pool)
+
+
+def graphed_compact(banks: SurfelBank, pool=None) -> fuse_step.BankGraph:
+    """`batched_compact` on `banks` as a `fuse_step.BankGraph` (the JAX
+    fleet's jitted `_batched_compact`, densesurfelmapping_tpu/pipeline/
+    multi_session.py:106-108)."""
+    return fuse_step.BankGraph(batched_compact, banks, (), pool)

@@ -24,8 +24,10 @@ the static input buffer of the fuse step captured as a CUDA graph
 graph per step signature, captured at its first frame, replayed once per
 frame, and captured again where the JAX driver re-jits (keyframe-capacity
 growth) and where the bank's tensors are replaced (a checkpoint load).
-Compaction and the loop warp stay eager operations between replays; both
-write the bank in place.
+Compaction and the loop warp replay graphs of their own
+(`fuse_step.BankGraph`, the JAX driver's jitted `compact_bank` and
+`warp_bank_by_pose`), rebuilt with the step; both write the bank in
+place.
 Semantics match `SurfelMapping` (equivalence-tested); readouts
 (export/eval/checkpoint) transfer the bank once, off the hot path.
 """
@@ -42,7 +44,6 @@ import torch
 from ..config import SurfelMapConfig
 from ..core.state import (FIELDS, pack_aux, pack_frame_with_aux,
                           pack_stereo_with_aux)
-from ..ops import warp as warp_ops
 from . import fuse_step
 from .driver import SurfelMapping, _StereoPair
 
@@ -68,11 +69,6 @@ class DeviceResidentMapping(SurfelMapping):
         self._pack_pool = (ThreadPoolExecutor(max_workers=1)
                            if pipelined else None)
         self._pending = None   # future of the packed one-buffer payload
-        # one memory pool for the driver's captured steps
-        self._graph_pool = fuse_step.graph_pool(self.device)
-        self._fuse_graph = None
-        self._stereo_graph = None
-        self._build_window_graphs()
 
     def close(self) -> None:
         """Complete any in-flight frame and stop the pack worker."""
@@ -80,15 +76,20 @@ class DeviceResidentMapping(SurfelMapping):
         if self._pack_pool is not None:
             self._pack_pool.shutdown()
 
-    def _build_window_graphs(self) -> None:
-        """(Re)build the captured steps, whose payload length depends on
-        config.max_keyframes and whose graphs write the current bank: the
-        counterpart of the JAX driver's `_build_window_jits`
-        (densesurfelmapping_tpu/pipeline/device_driver.py:72-79).  Called
-        again on keyframe-capacity growth and after a checkpoint load; each
-        step is captured at its first frame."""
+    def _build_graphs(self) -> None:
+        """(Re)build the captured programs, whose payload and warp inputs
+        depend on config.max_keyframes and whose graphs write the current
+        bank: the counterpart of the JAX driver's `_build_window_jits`
+        (densesurfelmapping_tpu/pipeline/device_driver.py:72-79) and of its
+        jitted compaction and pose warp.  Called again on keyframe-capacity
+        growth and after a checkpoint load; each program is captured at its
+        first use."""
+        cfg, bank, pool = self.config, self.bank, self._bank_pool
         self._fuse_graph = fuse_step.graphed_fuse_frame_onebuf(
-            self.config, self.bank, self._graph_pool)
+            cfg, bank, self._graph_pool)
+        self._compact_graph = fuse_step.graphed_compact(bank, pool)
+        self._pose_warp_graph = fuse_step.graphed_warp_bank_by_pose(
+            cfg, bank, pool)
         self._stereo_graph = None
         if self._stereo_cfg is not None:
             self._build_stereo_graph()
@@ -99,11 +100,6 @@ class DeviceResidentMapping(SurfelMapping):
         self._stereo_graph = fuse_step.graphed_fuse_frame_stereo_onebuf(
             self.config, self._stereo_cfg, self._stereo_filter, self.bank,
             self._graph_pool)
-
-    def enable_stereo(self, bf: float, stereo_config=None,
-                      filter_depth: bool = True) -> None:
-        super().enable_stereo(bf, stereo_config, filter_depth)
-        self._build_stereo_graph()
 
     def _ensure_keyframe_capacity(self) -> None:
         """Grow max_keyframes to the next power of two when the pose graph
@@ -123,7 +119,7 @@ class DeviceResidentMapping(SurfelMapping):
         w = np.zeros(new_p, bool)
         w[:len(self._window_np)] = self._window_np
         self._window_np = w
-        self._build_window_graphs()
+        self._build_graphs()
 
     # ------------------------------------------------------------------
     # migration == window-mask update (no device work at all)
@@ -144,14 +140,6 @@ class DeviceResidentMapping(SurfelMapping):
     # ------------------------------------------------------------------
     # fuse with window gating; fixed-schedule compaction; no stat reads
     # ------------------------------------------------------------------
-    def _staged(self, buf: np.ndarray) -> torch.Tensor:
-        """The packed payload as a tensor to copy to the device: on a GPU a
-        fresh pinned copy, so the copy does not block the host (the pinned
-        allocator reuses a block only once the copies that read it are
-        done)."""
-        t = torch.from_numpy(buf)
-        return t.pin_memory() if self.device.type == "cuda" else t
-
     def _upload(self, buf: np.ndarray) -> torch.Tensor:
         """One host-to-device copy of the packed payload."""
         return self._staged(buf).to(self.device, non_blocking=True)
@@ -238,9 +226,8 @@ class DeviceResidentMapping(SurfelMapping):
 
     def _apply_pose_warp(self, wstack: np.ndarray,
                          mstack: np.ndarray) -> None:
-        warp_ops.warp_bank_by_pose(
-            self.bank, self._to_device(wstack), self._to_device(mstack),
-            self._to_device(self._window_np), self._first_local)
+        self._pose_warp_graph(wstack, mstack, self._window_np,
+                              np.int64(self._first_local))
 
     # ------------------------------------------------------------------
     # readouts: one bank transfer, split by the window mask
@@ -303,7 +290,7 @@ class DeviceResidentMapping(SurfelMapping):
         self._load_graph(z)
         self._ensure_keyframe_capacity()
         # the graphs wrote the replaced bank's tensors
-        self._build_window_graphs()
+        self._build_graphs()
         mask = np.zeros(self.config.max_keyframes, bool)
         mask[sorted(self.local_indices)] = True
         self._window_np = mask
@@ -346,8 +333,8 @@ class ShardedDeviceResidentMapping(DeviceResidentMapping):
         self._scompact = sharding.sharded_compact(config, mesh)
         self._swarp = sharding.sharded_warp_by_pose(config, mesh)
 
-    # the mesh step stays eager: no captured graph
-    def _build_window_graphs(self) -> None:
+    # the mesh programs stay eager: no captured graph
+    def _build_graphs(self) -> None:
         pass
 
     def _build_stereo_graph(self) -> None:

@@ -8,7 +8,14 @@ sync (`synchronize_msgs`, `surfel_map.cpp:103-203`), pose/loop ingestion
 :791-824), readouts and checkpoint/resume.
 
 The pose graph and buffers are tiny and live on the host; every per-surfel /
-per-pixel operation runs on the driver's device.
+per-pixel operation runs on the driver's device.  Where the JAX driver
+dispatches a jitted program (the fuse step of each upload, compaction, the
+migration append and extract, the active warp), this driver replays the
+program captured in a CUDA graph (`fuse_step.StepGraph` / `BankGraph`,
+captured at its first use); each frame's payload (frame, pose, index, bf)
+travels in one host-to-device copy from pinned memory.  The inactive pool's
+warp (`warp_ops.warp_pool`) stays eager: its length changes with every call
+(the JAX jit re-traces it per shape).
 """
 
 from __future__ import annotations
@@ -21,10 +28,10 @@ import torch
 
 from ..config import SurfelMapConfig
 from ..core import geometry
-from ..core.state import (FIELDS, FrameInput, SurfelBank, bank_from_numpy,
-                          bank_to_numpy, compact_frame, pack_stereo_pair,
-                          pad_frame)
-from ..ops import fusion, migration, warp as warp_ops
+from ..core.state import (FIELDS, SurfelBank, bank_from_numpy, bank_to_numpy,
+                          pack_aux, pack_frame_with_aux, pack_stereo_pair,
+                          pack_stereo_with_aux, pad_frame)
+from ..ops import migration, warp as warp_ops
 from ..utils.timing import StageTimer
 from . import fuse_step
 from .inactive_pool import InactivePool
@@ -84,8 +91,53 @@ class SurfelMapping:
         self._stereo_bf: Optional[float] = None
         self._stereo_filter = True
 
+        # the captured programs (`_build_graphs`): the per-frame steps share
+        # one memory pool and the bank programs another, so no bank
+        # program's replay overwrites the stats a step left for sync_stats
+        self._graph_pool = fuse_step.graph_pool(self.device)
+        self._bank_pool = fuse_step.graph_pool(self.device)
+        self._fuse_graph = self._stereo_graph = None
+        self._compact_graph = self._append_graph = None
+        self._extract_graph = self._warp_graph = None
+        self._build_graphs()
+
+    def _build_graphs(self) -> None:
+        """(Re)build the captured programs against the current bank, the
+        counterparts of the JAX driver's jits (densesurfelmapping_tpu/
+        pipeline/driver.py:47-56, :81-84, :139-141): the fuse step of the
+        configured upload, compaction, the migration append and extract,
+        and the active warp, each captured at its first use.  Called again
+        after a checkpoint load (a graph holds the replaced bank's
+        addresses); the subclasses build their own programs or none."""
+        cfg, bank, pool = self.config, self.bank, self._bank_pool
+        graphed = (fuse_step.graphed_fuse_frame_compact if cfg.compact_upload
+                   else fuse_step.graphed_fuse_frame)
+        self._fuse_graph = graphed(cfg, bank, self._graph_pool)
+        self._compact_graph = fuse_step.graphed_compact(bank, pool)
+        self._append_graph = fuse_step.graphed_append(cfg, bank, pool)
+        self._extract_graph = fuse_step.graphed_extract(cfg, bank, pool)
+        self._warp_graph = fuse_step.graphed_warp_active(bank, pool)
+        self._stereo_graph = None
+        if self._stereo_cfg is not None:
+            self._build_stereo_graph()
+
+    def _build_stereo_graph(self) -> None:
+        """The stereo-resident step's graph (the JAX driver's
+        `_build_stereo_jit`)."""
+        self._stereo_graph = fuse_step.graphed_fuse_frame_stereo_packed(
+            self.config, self._stereo_cfg, self._stereo_filter, self.bank,
+            self._graph_pool)
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _staged(self, buf: np.ndarray) -> torch.Tensor:
+        """A packed payload as a tensor to copy to the device: on a GPU a
+        fresh pinned copy, so the copy does not block the host (the pinned
+        allocator reuses a block only once the copies that read it are
+        done)."""
+        t = torch.from_numpy(buf)
+        return t.pin_memory() if self.device.type == "cuda" else t
 
     # ------------------------------------------------------------------
     # inputs (reference: image_input/depth_input/orb_results_input)
@@ -115,6 +167,7 @@ class SurfelMapping:
         self._stereo_cfg = stereo_config or StereoConfig()
         self._stereo_bf = float(bf)
         self._stereo_filter = bool(filter_depth)
+        self._build_stereo_graph()
 
     def feed_stereo(self, stamp: float, left: np.ndarray,
                     right: np.ndarray) -> None:
@@ -244,28 +297,30 @@ class SurfelMapping:
             self.depth_buffer.popleft()
 
     def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
-        pose_dev = self._to_device(np.asarray(pose, np.float32).reshape(4, 4))
-        index = self._to_device(np.array(ref_index, np.int32))
+        """Pack the frame, pose, index and bf into one payload and replay
+        the step of its kind: the stereo step, the compact step or the
+        padded f32 step (`_build_graphs`)."""
+        aux = pack_aux(pose, ref_index, np.zeros(0, bool),
+                       bf=self._stereo_bf or 0.0)
         if isinstance(depth, _StereoPair):
-            _, stats = fuse_step.fuse_frame_stereo_packed(
-                self.config, self._stereo_cfg, self._stereo_filter,
-                self.bank, self._to_device(depth.buf), pose_dev, index,
-                self._to_device(np.array(self._stereo_bf, np.float32)))
-        elif self.config.compact_upload:
-            ci, cd = compact_frame(self.config, image, depth)
-            _, stats = fuse_step.fuse_frame_compact(
-                self.config, self.bank, self._to_device(ci),
-                self._to_device(cd), pose_dev, index)
+            step = self._stereo_graph
+            buf = pack_stereo_with_aux(self.config, depth.buf, aux)
         else:
-            pi, pd = pad_frame(self.config, np.asarray(image, np.float32),
-                               np.asarray(depth, np.float32))
-            _, stats = fuse_step.fuse_frame(self.config, self.bank, FrameInput(
-                image=self._to_device(pi), depth=self._to_device(pd),
-                pose=pose_dev, frame_index=index))
-        self._fuse_epilogue(stats)
+            step = self._fuse_graph
+            if self.config.compact_upload:
+                buf = pack_frame_with_aux(self.config, image, depth, aux)
+            else:
+                planes = pad_frame(self.config,
+                                   np.asarray(image, np.float32),
+                                   np.asarray(depth, np.float32))
+                buf = np.concatenate([p.reshape(-1).view(np.uint8)
+                                      for p in planes] + [aux])
+        self._fuse_epilogue(step(self._staged(buf)))
 
     def _fuse_epilogue(self, stats) -> None:
-        self._stats_dev = stats   # device values; synced on stats frames
+        # device values (on the card the step graph's static stats, which
+        # its next replay overwrites); synced on stats frames
+        self._stats_dev = stats
         self.frames_fused += 1
         if self.frames_fused % self.config.stats_interval == 0:
             self.sync_stats()
@@ -301,29 +356,27 @@ class SurfelMapping:
         return self.bank.capacity
 
     def _do_compact(self) -> None:
-        fusion.compact_bank(self.bank)
+        self._compact_graph()
         self.compactions += 1
 
     def _extract_chunk(self, ids: np.ndarray):
-        """One removed-pose extraction pass; returns (host fields, n)."""
-        buf, n = migration.extract_by_pose(
-            self.bank, self._to_device(ids), self.config.migration_buffer)
+        """One removed-pose extraction pass; returns (host fields, n).  The
+        rows are the graph's static outputs: copied to the host here,
+        before the next replay overwrites them."""
+        rows, n = self._extract_graph(ids)
         n = int(n)
         if n == 0:
             return {}, 0
-        return {k: v[:n].cpu().numpy() for k, v in buf.items()}, n
+        return {k: v[:n].to("cpu", copy=True).numpy()
+                for k, v in rows.items()}, n
 
     def _append_hostslab(self, padded: dict, n: int) -> None:
         """Tail-append the first n rows of a migration_buffer-row host
         slab."""
-        mask = torch.arange(self.config.migration_buffer,
-                            device=self.device) < n
-        fusion.append_new(self.bank, {k: self._to_device(v)
-                                      for k, v in padded.items()}, mask)
+        self._append_graph(*(padded[k] for k in FIELDS), np.int32(n))
 
     def _apply_active_warp(self, warp: np.ndarray) -> None:
-        warp_ops.warp_active(self.bank, self._to_device(
-            np.asarray(warp, np.float32)))
+        self._warp_graph(np.asarray(warp, np.float32))
 
     def _bank_host(self) -> dict:
         """Host copy of the bank's allocated rows."""
@@ -568,6 +621,7 @@ class SurfelMapping:
     def load_checkpoint(self, path: str) -> None:
         z = np.load(path, allow_pickle=False)
         self._load_bank(z)
+        self._build_graphs()    # the graphs wrote the replaced bank
         self._load_graph(z)
         self.pool = InactivePool()
         off = 0

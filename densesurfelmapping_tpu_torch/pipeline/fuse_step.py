@@ -8,7 +8,10 @@ Counterpart of the JAX package's `pipeline/fuse_step.py`: the whole hot path
 on tensors of one device.  The bank is updated in place (where the JAX
 package donates it); the stats dict holds device scalars, read by the host
 only when it asks.  Where the JAX drivers dispatch a jitted step, the
-port's drivers replay the step captured in a CUDA graph (`StepGraph`).
+port's drivers replay the step captured in a CUDA graph (`StepGraph`); where
+they dispatch a jitted bank program (compaction, the migration append and
+extract, the loop warps), they replay it captured the same way
+(`BankGraph`).
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SurfelMapConfig
-from ..core.state import AUX_HEAD_BYTES, FrameInput, SurfelBank
-from ..ops import fusion, normals, superpixel
+from ..core.state import AUX_HEAD_BYTES, FIELDS, FrameInput, SurfelBank
+from ..ops import fusion, migration, normals, superpixel
+from ..ops import warp as warp_ops
 
 
 def fuse_frame(config: SurfelMapConfig, bank: SurfelBank, frame: FrameInput,
@@ -282,11 +286,7 @@ def fuse_frames_scan(config: SurfelMapConfig, bank: SurfelBank,
                      ) -> Tuple[SurfelBank, dict]:
     """Fuse a chunk of compact frames (leading axis N, resident on the
     bank's device) in order: N successive `fuse_frame_compact` calls.
-    Returns (bank updated in place, stats stacked (N,) per frame).
-
-    The JAX package also has `jitted_compact`, a donated jit of
-    `compact_bank`; the port needs none: `fusion.compact_bank` repacks the
-    bank in place."""
+    Returns (bank updated in place, stats stacked (N,) per frame)."""
     per_frame = [fuse_frame_compact(config, bank, images_u8[i],
                                     depths_f16[i], poses[i],
                                     frame_indices[i])[1]
@@ -327,14 +327,17 @@ def fuse_frames_looped(config: SurfelMapConfig, n_loops: int,
     return bank, torch.stack(trace)
 
 
-# graphs captured in this process (`capture`: LapGraph and StepGraph), read
-# beside the kernels' LAUNCHES: a replayed graph launches its kernels without
-# calling their wrappers
-CAPTURES = {"graphs": 0}
+# graphs captured in this process (`capture`), read beside the kernels'
+# LAUNCHES: a replayed graph launches its kernels without calling their
+# wrappers.  "steps": the fuse steps and laps (StepGraph, LapGraph), whose
+# warm-up runs the kernels once; "programs": the other bank programs
+# (BankGraph), which run none of them
+CAPTURES = {"steps": 0, "programs": 0}
 
 
 def capture(bank: SurfelBank, body: Callable[[SurfelBank], object],
-            pool=None, reset: Callable[[], None] | None = None):
+            pool=None, reset: Callable[[], None] | None = None,
+            kind: str = "steps"):
     """Capture body(bank) into a `torch.cuda.CUDAGraph`: returns (graph,
     what the captured call returned, its tensors now the graph's static
     outputs).
@@ -349,7 +352,8 @@ def capture(bank: SurfelBank, body: Callable[[SurfelBank], object],
     worker, the fleet's pipelined rounds, pinned allocations on the main
     thread) may call CUDA while it runs, and only this thread is barred
     from calls that a capture forbids.  `pool` (`graph_pool`) shares one
-    memory pool between the graphs of a driver."""
+    memory pool between the graphs of a driver; `kind` is the CAPTURES
+    entry the capture counts in."""
     dev = bank.device
     if dev.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
@@ -367,7 +371,7 @@ def capture(bank: SurfelBank, body: Callable[[SurfelBank], object],
     with torch.cuda.graph(graph, pool=None if pool is None else pool.id,
                           capture_error_mode="thread_local"):
         out = body(bank)
-    CAPTURES["graphs"] += 1
+    CAPTURES[kind] += 1
     return graph, out
 
 
@@ -424,60 +428,95 @@ class LapGraph:
         self.graph.replay()
 
 
-class StepGraph:
-    """One per-frame fuse step captured into a `torch.cuda.CUDAGraph` and
-    replayed once per frame: the counterpart of the JAX package's compiled
-    steps `jitted_fuse_frame_onebuf` (densesurfelmapping_tpu/pipeline/
-    fuse_step.py:361-364), `jitted_fuse_frame_stereo_onebuf` (:379-384) and
-    `jitted_fuse_frame_packed` (:113-115, `diagnose`'s step), which the
-    JAX drivers build once per step signature and dispatch once per
-    frame.
+class BankGraph:
+    """A program over a bank captured into a `torch.cuda.CUDAGraph` at its
+    first call and replayed at every later one: the counterpart of a JAX
+    jit dispatched on the bank (the fuse steps below, `StepGraph`; the bank
+    programs of the drivers: `jitted_compact`, `_jitted_append`,
+    `migration.extract_by_pose`, `warp_active`, `warp_bank_by_pose` and the
+    fleet's `_batched_warp` / `_batched_compact`).
 
-    `step(bank, buf) -> stats` is the eager step over one packed u8 payload
-    of shape `shape` ((n,) for a driver, (B, n) for a fleet round).  The
-    object owns a static input buffer of that shape on the bank's device,
-    the bank the step was captured against (updated in place, so its
-    tensors keep their addresses), and the static stats tensors the
-    captured step returns; `keep` holds whatever else the graph reads and
-    must outlive it (the cached geometry planes of `ops/superpixel.py`).
+    `fn(bank, *inputs)` is the eager program.  The object owns one static
+    input per argument (`specs`: (shape, dtype) each) on the bank's device,
+    the bank it was captured against (written in place, so its tensors keep
+    their addresses), and what the captured call returned: static outputs,
+    which the next replay overwrites, and so may the replay of a graph
+    captured earlier into the same pool (its freed intermediates are the
+    later graph's to reuse): read them before either.  `keep` holds
+    whatever else the graph reads and must outlive it.
 
-    `load(buf)` copies a frame's payload (a pinned host tensor or a device
-    tensor) into the static buffer; `replay()` captures the step at its
-    first call (`capture`: a warm-up on a scratch clone of the bank, then
-    the capture, which synchronises like a jit's first call) and enqueues
-    one replay; `__call__(buf)` does both and returns the stats, which the
-    next replay overwrites.  On a CPU bank the same object runs the same
-    step eagerly through the same static buffer; on a CUDA bank it captures
-    or raises."""
+    `load(*args)` copies the arguments (host arrays or tensors) into the
+    static inputs without blocking the host; `replay()` captures `fn` at
+    its first call (`capture`: a warm-up on a scratch clone of the bank,
+    then the capture, which synchronises like a jit's first call) and
+    enqueues one replay; `__call__(*args)` does both and returns the
+    outputs.  On a CPU bank the same object runs `fn` eagerly through the
+    same static inputs; on a CUDA bank it captures or raises."""
 
-    def __init__(self, step: Callable[[SurfelBank, torch.Tensor], dict],
-                 bank: SurfelBank, shape, pool=None, keep=()):
-        self.step = step
+    kind = "programs"   # its CAPTURES entry
+
+    def __init__(self, fn: Callable, bank: SurfelBank, specs=(), pool=None,
+                 keep=()):
+        self.fn = fn
         self.bank = bank
-        self.buf = torch.zeros(shape, dtype=torch.uint8, device=bank.device)
+        self.inputs = tuple(torch.zeros(shape, dtype=dtype,
+                                        device=bank.device)
+                            for shape, dtype in specs)
         self.pool = pool
         self.keep = keep
         self.graph = None
-        self.stats: dict | None = None
+        self.out = None
+        self.replays = 0
         self.capture_ms = 0.0   # host ms of the warm-up and the capture
 
-    def load(self, buf: torch.Tensor) -> None:
-        self.buf.copy_(buf, non_blocking=True)
+    def load(self, *args) -> None:
+        for dst, src in zip(self.inputs, args, strict=True):
+            dst.copy_(torch.as_tensor(src), non_blocking=True)
 
-    def replay(self) -> dict:
+    def replay(self):
         if self.bank.device.type != "cuda":
-            return self.step(self.bank, self.buf)
+            return self.fn(self.bank, *self.inputs)
         if self.graph is None:
             t0 = time.perf_counter()
-            self.graph, self.stats = capture(
-                self.bank, lambda b: self.step(b, self.buf), self.pool)
+            self.graph, self.out = capture(
+                self.bank, lambda b: self.fn(b, *self.inputs), self.pool,
+                kind=self.kind)
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
         self.graph.replay()
-        return self.stats
+        self.replays += 1
+        return self.out
 
-    def __call__(self, buf: torch.Tensor) -> dict:
-        self.load(buf)
+    def __call__(self, *args):
+        self.load(*args)
         return self.replay()
+
+
+class StepGraph(BankGraph):
+    """One per-frame fuse step captured into a `torch.cuda.CUDAGraph` and
+    replayed once per frame: the counterpart of the JAX package's compiled
+    steps (`jitted_fuse_frame_onebuf`, densesurfelmapping_tpu/pipeline/
+    fuse_step.py:361-364; `jitted_fuse_frame_stereo_onebuf`, :379-384;
+    `jitted_fuse_frame_packed`, :113-115, `diagnose`'s step; the host-pool
+    driver's `jitted_fuse_frame`, `jitted_fuse_frame_compact` and
+    `jitted_fuse_frame_stereo_packed`, :61-90, :261-265; the fleet's
+    vmapped rounds), which the JAX drivers build once per step signature
+    and dispatch once per frame.
+
+    A `BankGraph` whose one static input is the frame's packed u8 payload
+    of shape `shape` ((n,) for a driver, (B, n) for a fleet round) and
+    whose outputs are the step's stats: `step(bank, buf) -> stats`; `keep`
+    holds the cached geometry planes of `ops/superpixel.py` the graph
+    reads."""
+
+    kind = "steps"
+
+    def __init__(self, step: Callable[[SurfelBank, torch.Tensor], dict],
+                 bank: SurfelBank, shape, pool=None, keep=()):
+        super().__init__(step, bank, ((shape, torch.uint8),), pool, keep)
+
+    @property
+    def buf(self) -> torch.Tensor:
+        return self.inputs[0]
 
 
 def onebuf_bytes(config: SurfelMapConfig) -> int:
@@ -533,6 +572,114 @@ def graphed_fuse_frame_packed(config: SurfelMapConfig, bank: SurfelBank,
 
     return StepGraph(step, bank, (hw3 + AUX_HEAD_BYTES,), pool,
                      keep=step_geometry(config, bank))
+
+
+def graphed_fuse_frame_compact(config: SurfelMapConfig, bank: SurfelBank,
+                               pool=None) -> StepGraph:
+    """`fuse_frame_compact` on `bank` as a StepGraph: the JAX package's
+    `jitted_fuse_frame_compact`, the host-pool driver's step under
+    `compact_upload`.  The compact planes travel as `pack_frame` bytes, so
+    this is `graphed_fuse_frame_packed`'s graph and payload."""
+    return graphed_fuse_frame_packed(config, bank, pool)
+
+
+def padded_frame_bytes(config: SurfelMapConfig) -> int:
+    """Length of the padded f32 image and depth planes as bytes."""
+    return 8 * config.padded_height * config.padded_width
+
+
+def graphed_fuse_frame(config: SurfelMapConfig, bank: SurfelBank,
+                       pool=None) -> StepGraph:
+    """`fuse_frame` on `bank` as a StepGraph: the JAX package's
+    `jitted_fuse_frame`, the host-pool driver's step without
+    `compact_upload`.  Its payload is the padded f32 image and depth planes
+    (`core.state.pad_frame`) as bytes, then a 72-byte `pack_aux` head (pose
+    and frame index)."""
+    ph, pw = config.padded_height, config.padded_width
+    n = 4 * ph * pw
+
+    def step(b: SurfelBank, buf: torch.Tensor) -> dict:
+        pose, ref, _, _ = unpack_aux(buf[2 * n:])
+        return fuse_frame(config, b, FrameInput(
+            image=_bitcast(buf[:n], torch.float32).view(ph, pw),
+            depth=_bitcast(buf[n:2 * n], torch.float32).view(ph, pw),
+            pose=pose, frame_index=ref))[1]
+
+    return StepGraph(step, bank, (2 * n + AUX_HEAD_BYTES,), pool,
+                     keep=step_geometry(config, bank))
+
+
+def graphed_fuse_frame_stereo_packed(config: SurfelMapConfig, stereo_config,
+                                     filter_depth: bool, bank: SurfelBank,
+                                     pool=None) -> StepGraph:
+    """`fuse_frame_stereo_packed` on `bank` as a StepGraph: the JAX
+    package's `jitted_fuse_frame_stereo_packed`, the host-pool driver's
+    stereo step.  Its payload is `core.state.pack_stereo_pair`'s bytes
+    followed by a 72-byte `pack_aux` head (pose, frame index and bf)."""
+    hw2 = 2 * config.height * config.width
+
+    def step(b: SurfelBank, buf: torch.Tensor) -> dict:
+        pose, ref, bf, _ = unpack_aux(buf[hw2:])
+        return fuse_frame_stereo_packed(config, stereo_config, filter_depth,
+                                        b, buf[:hw2], pose, ref, bf)[1]
+
+    return StepGraph(step, bank, (hw2 + AUX_HEAD_BYTES,), pool,
+                     keep=step_geometry(config, bank))
+
+
+# ----------------------------------------------------------------------
+# the drivers' bank programs as BankGraphs
+# ----------------------------------------------------------------------
+def graphed_compact(bank: SurfelBank, pool=None) -> BankGraph:
+    """`fusion.compact_bank` on `bank` (the JAX package's `jitted_compact`,
+    densesurfelmapping_tpu/pipeline/fuse_step.py:450)."""
+    return BankGraph(fusion.compact_bank, bank, (), pool)
+
+
+def graphed_append(config: SurfelMapConfig, bank: SurfelBank,
+                   pool=None) -> BankGraph:
+    """The tail append of the first n rows of a migration_buffer-row slab
+    (the JAX driver's `_jitted_append`, densesurfelmapping_tpu/pipeline/
+    driver.py:47-56).  Inputs: the slab's fields in `FIELDS` order, then n
+    () i32; returns `fusion.append_new`'s stats."""
+    m = config.migration_buffer
+    specs = [((m,) + getattr(bank, k).shape[1:], getattr(bank, k).dtype)
+             for k in FIELDS] + [((), torch.int32)]
+
+    def append(b: SurfelBank, *args) -> dict:
+        *fields, n = args
+        mask = torch.arange(m, device=b.device) < n
+        return fusion.append_new(b, dict(zip(FIELDS, fields)), mask)
+
+    return BankGraph(append, bank, specs, pool)
+
+
+def graphed_extract(config: SurfelMapConfig, bank: SurfelBank,
+                    pool=None) -> BankGraph:
+    """`migration.extract_by_pose` over MAX_REMOVE_POSES pose ids (input:
+    (MAX_REMOVE_POSES,) i32, padded with -1) into migration_buffer rows;
+    returns (rows, n)."""
+    return BankGraph(
+        lambda b, ids: migration.extract_by_pose(b, ids,
+                                                 config.migration_buffer),
+        bank, (((migration.MAX_REMOVE_POSES,), torch.int32),), pool)
+
+
+def graphed_warp_active(bank: SurfelBank, pool=None) -> BankGraph:
+    """`warp_ops.warp_active` on `bank` (input: the (4, 4) f32 warp)."""
+    return BankGraph(warp_ops.warp_active, bank,
+                     (((4, 4), torch.float32),), pool)
+
+
+def graphed_warp_bank_by_pose(config: SurfelMapConfig, bank: SurfelBank,
+                              pool=None) -> BankGraph:
+    """`warp_ops.warp_bank_by_pose` on `bank`.  Inputs, with P =
+    config.max_keyframes: warps (P, 4, 4) f32, moved (P,) bool, the window
+    mask (P,) bool and first_local () i64."""
+    P = config.max_keyframes
+    return BankGraph(warp_ops.warp_bank_by_pose, bank,
+                     (((P, 4, 4), torch.float32), ((P,), torch.bool),
+                      ((P,), torch.bool), ((), torch.int64)), pool)
 
 
 def segmentation_only(config: SurfelMapConfig, image: torch.Tensor,

@@ -36,12 +36,17 @@ Serving lifecycle:
 * uploads — a round's entire payload (B frames + B pose/ref/window aux
   blocks) is ONE (B, frame_bytes + aux_bytes) u8 copy per round, from
   pinned memory without blocking the host.
-* dispatch — on the card the depth-fed round is captured as a CUDA graph
-  at its first use (`multistream.graphed_onebuf_step`, where the JAX fleet
-  jits `_batched_onebuf_step`) and replayed once per round; it is captured
-  again when the payload's shape or the banks change (keyframe-capacity
-  growth, `add_session` / `remove_session`, `load_checkpoint`).  The
-  stereo round runs eagerly.
+* dispatch — on the card the round is captured as a CUDA graph at its
+  first use (`multistream.graphed_onebuf_step` and, in stereo mode,
+  `graphed_stereo_onebuf_step`, where the JAX fleet jits
+  `_batched_onebuf_step` / `_batched_stereo_onebuf_step`) and replayed once
+  per round; so are the batched compaction and loop warp
+  (`multistream.graphed_compact` / `graphed_warp`, the JAX fleet's
+  `_batched_compact` / `_batched_warp`).  All of them are captured again
+  when the payload's shape or the banks change (keyframe-capacity growth,
+  `add_session` / `remove_session`, `load_checkpoint`) and when
+  `enable_stereo` switches the round; they share one memory pool, and the
+  round's stats are consumed in stream order right after its replay.
 """
 
 from __future__ import annotations
@@ -136,9 +141,9 @@ class MultiSessionMapping:
         self._dispatch_pool = (ThreadPoolExecutor(max_workers=1)
                                if pipelined else None)
         self._banks_fut = None
-        # the depth-fed round's captured step and its memory pool
+        # the captured round, compaction and warp and their memory pool
         self._graph_pool = fuse_step.graph_pool(self.device)
-        self._round = None
+        self._round = self._compact_graph = self._warp_graph = None
 
         # fleet-wide on-device stereo front-end (enable_stereo/feed_stereo)
         self._stereo_cfg = None
@@ -172,9 +177,13 @@ class MultiSessionMapping:
         camera config."""
         from ..models.stereo import StereoConfig
 
+        self._flush_round()
         self._stereo_cfg = stereo_config or StereoConfig()
         self._stereo_bf = float(bf)
         self._stereo_filter = bool(filter_depth)
+        # the stereo round replaces the depth-fed one, which a stereo fleet
+        # never replays: its graph is freed
+        self._round = None
 
     def feed_stereo(self, stream: int, stamp: float, left, right) -> None:
         """Rectified pair for one stream; the left image is the fuse
@@ -279,7 +288,7 @@ class MultiSessionMapping:
             return
         # an in-flight round runs the graph of the old payload shape
         self._flush_round()
-        self._round = None
+        self._reset_graphs()
         new_p = self.config.max_keyframes
         while new_p < need:
             new_p *= 2
@@ -299,20 +308,24 @@ class MultiSessionMapping:
         """One host-to-device copy of the round's payload."""
         return src.to(self.device, non_blocking=True)
 
+    def _reset_graphs(self) -> None:
+        """Drop the captured programs: each is built again, against the
+        current banks and payload shape, at its next use."""
+        self._round = self._compact_graph = self._warp_graph = None
+
     def _run_round(self, cfg: SurfelMapConfig, src: torch.Tensor) -> dict:
         """Upload a round's payload and enqueue its step; returns the
-        stats.  The depth-fed round copies the payload into its captured
-        step's input and replays it; the stereo round runs eagerly."""
-        if self._stereo_cfg is not None:
-            with self.timer.stage("upload"):
-                payload_d = self._upload(src)
-            with self.timer.stage("dispatch"):
-                return multistream.batched_stereo_onebuf_step(
-                    cfg, self._stereo_cfg, self._stereo_filter, self.banks,
-                    payload_d)
+        stats.  The payload is copied into the captured round's input (the
+        stereo round in stereo mode, else the depth-fed one), which is then
+        replayed."""
         if self._round is None:
-            self._round = multistream.graphed_onebuf_step(
-                cfg, self.banks, self._graph_pool)
+            if self._stereo_cfg is not None:
+                self._round = multistream.graphed_stereo_onebuf_step(
+                    cfg, self._stereo_cfg, self._stereo_filter, self.banks,
+                    self._graph_pool)
+            else:
+                self._round = multistream.graphed_onebuf_step(
+                    cfg, self.banks, self._graph_pool)
         with self.timer.stage("upload"):
             self._round.load(src)
         with self.timer.stage("dispatch"):
@@ -410,11 +423,11 @@ class MultiSessionMapping:
         (fixed-interval, zero-readback: the serving equivalent of
         DeviceResidentMapping's compaction schedule)."""
         self._flush_round()
-        multistream.batched_compact(self.banks)
+        if self._compact_graph is None:
+            self._compact_graph = multistream.graphed_compact(
+                self.banks, self._graph_pool)
+        self._compact_graph()
         self.compactions += 1
-
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _flush_warps(self) -> None:
         """Apply pending loop-closure warps for every session in one
@@ -440,10 +453,15 @@ class MultiSessionMapping:
                 any_pending = True
         if not any_pending:
             return
-        multistream.batched_warp(self.banks, self._to_device(wstack),
-                                 self._to_device(mstack),
-                                 self._to_device(masks),
-                                 self._to_device(firsts))
+        self._apply_warps(wstack, mstack, masks, firsts)
+
+    def _apply_warps(self, wstack: np.ndarray, mstack: np.ndarray,
+                     masks: np.ndarray, firsts: np.ndarray) -> None:
+        """Replay the batched warp's graph on the fleet's banks."""
+        if self._warp_graph is None:
+            self._warp_graph = multistream.graphed_warp(
+                self.config, self.banks, self._graph_pool)
+        self._warp_graph(wstack, mstack, masks, firsts)
 
     # ------------------------------------------------------------------
     # elastic session management
@@ -457,7 +475,7 @@ class MultiSessionMapping:
             (1,), dtype=torch.int32, device=self.device)])
         self.sessions.append(_Session(self.config))
         self.n_streams += 1
-        self._round = None
+        self._reset_graphs()
         return self.n_streams - 1
 
     def remove_session(self, stream: int) -> dict:
@@ -469,7 +487,7 @@ class MultiSessionMapping:
         self._drop_accum = self._drop_accum[keep]
         del self.sessions[stream]
         self.n_streams -= 1
-        self._round = None
+        self._reset_graphs()
         return rows
 
     # ------------------------------------------------------------------
@@ -591,4 +609,4 @@ class MultiSessionMapping:
         # -1, not 0: 0 means "owned by keyframe 0" to the window gating)
         multistream.place_rows(self.banks, stream,
                                {k: z[f"bank_{k}"] for k in FIELDS}, n)
-        self._round = None
+        self._reset_graphs()

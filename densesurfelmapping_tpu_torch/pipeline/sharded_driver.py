@@ -74,6 +74,13 @@ class ShardedSurfelMapping(SurfelMapping):
                                                 self._per_chunk)
         self._swarp = sharding.sharded_warp_active(config, mesh)
 
+    # the mesh programs stay eager: no captured graph
+    def _build_graphs(self) -> None:
+        pass
+
+    def _build_stereo_graph(self) -> None:
+        pass
+
     def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
         pose_dev = self._to_device(np.asarray(pose, np.float32)[None])
         refs = self._to_device(np.full(1, ref_index, np.int32))
