@@ -74,17 +74,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
                loop (trace and bank torch.equal), each SLIC kernel 3x per
                step in the profiler's records; the replay's device frames/s
                beside the eager loop's, and the call's peak memory
- 13. sharded - ShardedDeviceResidentMapping on a (1, 2) mesh of this card
-               (2 virtual shards), 24 frames under the sync check,
-               replicated (SLIC 3x per frame per shard) and frame-sharded
-               (the slabs run the plain SLIC functions), and stereo over 4
-               pairs (B5/B6 once per frame per shard), each equal to the
-               dense DeviceResidentMapping (1e-4 m), a loop warp, frames/s
-               of each; ShardedSurfelMapping (host pool, no graph) over the
-               60 frames equal to the dense host-pool SurfelMapping (1e-4
-               m, bank and pool); sharded_sgm_disparity on 2 shards (a
-               61 x 97 crop and KITTI size) equal to the replicated plain
-               disparity
+ 13. sharded - the sharded drivers on a (1, 2) mesh of this card (2
+               virtual shards), their mesh programs replayed from captured
+               graphs, each torch.equal on every shard to an eager
+               reference on the eager mesh programs before and after a
+               loop warp, and equal to the dense drive within 1e-4 m:
+               ShardedDeviceResidentMapping, 24 frames under the sync
+               check after the first, replicated (SLIC 3x per frame per
+               shard) and frame-sharded (the slabs run the plain SLIC
+               functions), stereo over 4 pairs (B5/B6 once per frame per
+               shard); ShardedSurfelMapping over the 60 host-pool frames,
+               its reads confined to the stats, counts and extracts (pool
+               arrays equal too); launches by the profiler's records,
+               replays, captures, each MemPool's MiB (the dense host
+               pool's too), graphed and eager frames/s (median of 3);
+               sharded_sgm_disparity's graph on 2 shards (a 61 x 97 crop
+               and KITTI size): its replays == its eager call == the
+               replicated plain disparity
  14. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
@@ -988,24 +994,46 @@ def device_record_names(prof) -> list:
             and not e.is_user_annotation()]
 
 
-def executed(fn):
-    """fn() under the profiler, with every kernel count and the count of
-    captured graphs set to 0 just before and read just after.  Returns
-    (fn's result, {"calls": each wrapper's launches, "runs": each kernel's
-    device runs by the profiler's kernel records, "captures": fuse steps
-    captured, "programs": other bank programs captured (compaction,
-    migration, warps: no kernel of the six runs in them)}).  A captured
-    step calls each wrapper twice per capture (the warm-up and the capture
-    itself) and never again: its replays launch the kernels from the graph,
-    and only the profiler sees them."""
+# A counting window's edges.  The profiler keeps only the device records
+# that it finds inside its window, and when the host is busy it may drop
+# the records of whole graph replays next to an edge as out of range
+# (kineto's "Out-of-range" count), although the window synchronised on
+# them: once the records of 17 frames of a 60-frame graphed drive.  So
+# the body of a counting window starts and ends EDGE_PAD_S of host time
+# away from the window's edges.
+EDGE_PAD_S = 0.75
+
+
+@contextlib.contextmanager
+def device_records():
+    """A profiler window over the body, which starts and ends EDGE_PAD_S
+    from the window's edges; yields a list that holds, after the block,
+    the names of the body's device records (`device_record_names`)."""
     from torch.profiler import ProfilerActivity, profile
-    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
-    for kind in FS.CAPTURES:
-        FS.CAPTURES[kind] = 0
+    names: list = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res, calls = counted(fn)
+        time.sleep(EDGE_PAD_S)
+        yield names
         torch.cuda.synchronize()
-    names = device_record_names(prof)
+        time.sleep(EDGE_PAD_S)
+    names.extend(device_record_names(prof))
+
+
+def executed(fn):
+    """fn() under the profiler (`device_records`), with every kernel count
+    and the count of captured graphs set to 0 just before and read just
+    after.  Returns (fn's result, {"calls": each wrapper's launches,
+    "runs": each kernel's device runs by the profiler's kernel records,
+    "captures": fuse steps captured, "programs": other bank programs
+    captured (compaction, migration, warps: no kernel of the six runs in
+    them)}).  A captured step calls each wrapper twice per capture (the
+    warm-up and the capture itself) and never again: its replays launch
+    the kernels from the graph, and only the profiler sees them."""
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    with device_records() as names:
+        for kind in FS.CAPTURES:
+            FS.CAPTURES[kind] = 0
+        res, calls = counted(fn)
     runs = {k: sum(any(p in n for p in parts) for n in names)
             for k, parts in KERNEL_RECORDS.items()}
     return res, dict(calls=calls, runs=runs, captures=FS.CAPTURES["steps"],
@@ -1019,11 +1047,11 @@ def check_runs(ex: dict, per: dict, steps: int, what: str,
     a step, so its wrapper was called per[k] (2 captures + eager) times
     and it ran per[k] (steps + captures + eager) times (a capture's
     warm-up runs, the capture itself does not).  The wrapper count is
-    exact; of the device runs the profiler may miss a few records: two at
-    the edges of a window, and on a long window of graph replays a buffer
-    of them (on an H100, 3 of each SLIC kernel's 93 in a 30-pair stereo
-    drive, none in 6-pair drives), so up to 5% (at least 2) may be
-    missing, none extra.
+    exact; of the device runs the profiler may miss a few records: near a
+    window's edges, which `device_records` keeps the body away from, and
+    on a long window of graph replays a buffer of them (on an H100, 3 of
+    each SLIC kernel's 93 in a 30-pair stereo drive, none in 6-pair
+    drives), so up to 5% (at least 2) may be missing, none extra.
     That every replay ran every kernel is shown by the graphed map's
     equality with the eager one (the `graph` phase)."""
     c = ex["captures"]
@@ -2259,8 +2287,6 @@ HOST_POOL_LOOP = 40     # this frame's keyframe links back to keyframe 1
 HOST_POOL_SLACK = 1 << 12   # compaction_slack of the host-pool drives
 N_B4_PAIRS = 4          # pairs of the host-pool drive of the B4 matcher
 HOST_POOL_READS = ("sync_stats", "_bank_count", "_extract_chunk")
-HOST_POOL_GRAPHS = ("_fuse_graph", "_stereo_graph", "_compact_graph",
-                    "_append_graph", "_extract_graph", "_warp_graph")
 
 
 @contextlib.contextmanager
@@ -2318,15 +2344,17 @@ def host_pool_feeder(drv, frames, pairs=None):
 
 
 def drive_host_pool(cls, config, device, frames, pairs=None, scfg=None,
-                    sync_checked=False) -> tuple:
-    """A host-pool driver over the frames (or pairs), the feed after the
-    first frame under the sync check if asked, with the driver's reads
-    allowed (`reads_allowed`).  Returns (driver, steady frames/s with the
-    graph captures in the feed taken out (`captures_timed`), host ms per
-    frame by StageTimer stage, {read: calls, "frames": frames after the
-    first, "reading": those of them that read the device})."""
+                    sync_checked=False, mesh=None) -> tuple:
+    """A host-pool driver (over `mesh` if given: the sharded one) over the
+    frames (or pairs), the feed after the first frame under the sync check
+    if asked, with the driver's reads allowed (`reads_allowed`).  Returns
+    (driver, steady frames/s with the graph captures in the feed taken out
+    (`captures_timed`), host ms per frame by StageTimer stage, {read:
+    calls, "frames": frames after the first, "reading": those of them that
+    read the device})."""
     from densesurfelmapping_tpu_torch.utils.timing import StageTimer
-    drv = cls(config, device=device)
+    drv = (cls(config, device=device) if mesh is None
+           else cls(config, mesh))
     if scfg is not None:
         drv.enable_stereo(bf=config.camera.fx * BASELINE_M,
                           stereo_config=scfg)
@@ -2696,9 +2724,9 @@ SHARDED_TOL_M = 1e-4    # the JAX package's sharded == dense tolerance
 SLIC = ("slic_assign", "slic_centroid", "slic_huber")
 
 
-def slic_records(prof) -> dict:
-    """Kernel records of each SLIC kernel in a profiler window."""
-    names = device_record_names(prof)
+def slic_records(names) -> dict:
+    """Kernel records of each SLIC kernel among a window's device record
+    names (`device_records`)."""
     return {k: sum(f"{k}_kernel" in n for n in names) for k in SLIC}
 
 
@@ -2707,7 +2735,6 @@ def phase_batch(device, frames) -> dict:
     steps, fuse_frames_looped (one lap captured in a CUDA graph, replayed)
     against the eager loop, and the replay's device frames/s beside the
     eager loop's.  Returns the kernel launches."""
-    from torch.profiler import ProfilerActivity, profile
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import (FIELDS, SurfelBank,
                                                           compact_frame)
@@ -2772,11 +2799,11 @@ def phase_batch(device, frames) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_records() as names:
         (_, trace_g), n = counted(lambda: FS.fuse_frames_looped(
             cfg, N_LAPS, graph, imgs, deps, poses))
     peak = torch.cuda.max_memory_allocated() - base
-    recs = slic_records(prof)
+    recs = slic_records(names)
     add(recs)
     require(torch.equal(trace_g, trace_e), "looped replay: trace differs "
             "from the eager loop")
@@ -2844,177 +2871,431 @@ def same_map(a: dict, b: dict, what: str) -> float:
     return err
 
 
+def pool_mib(pool) -> float:
+    """The device memory a `torch.cuda.MemPool` holds (its segments), MiB."""
+    held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool.id))
+    return held / 2**20
+
+
+def pools_line(drv) -> str:
+    return (f"steps' pool {pool_mib(drv._graph_pool):.1f} MiB, bank "
+            f"programs' pool {pool_mib(drv._bank_pool):.1f} MiB")
+
+
+@functools.lru_cache(maxsize=1)
+def sharded_eager_classes():
+    """The eager references of the sharded drivers: their mesh programs
+    (`parallel/sharding.py`, `parallel/frame_sharding.py`) called op by op
+    on the uploaded inputs, as the drivers ran them before they were
+    captured: ShardedDeviceResidentMapping's depth-fed and stereo steps,
+    compaction and pose warp; ShardedSurfelMapping's padded and stereo
+    steps, compaction, the migration extract and append and the active
+    warp."""
+    from densesurfelmapping_tpu_torch.core.state import (FIELDS, FrameInput,
+                                                         pad_frame)
+    from densesurfelmapping_tpu_torch.parallel import frame_sharding as FSH
+    from densesurfelmapping_tpu_torch.parallel import sharding as SH
+    from densesurfelmapping_tpu_torch.parallel.multistream import (
+        unpack_payload)
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        ShardedDeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.driver import _StereoPair
+    from densesurfelmapping_tpu_torch.pipeline.sharded_driver import (
+        ShardedSurfelMapping)
+
+    class EagerSharded(ShardedDeviceResidentMapping):
+        def _fuse_packed(self, buf):
+            hw3 = 3 * self.config.height * self.config.width
+            with self.timer.stage("dispatch"):
+                frames, poses, refs, _, masks = unpack_payload(
+                    self._upload(buf)[None], hw3)
+                make = (FSH.sharded_fuse_frame_framestage_windowed_packed
+                        if self.frame_sharded
+                        else SH.sharded_fuse_frame_windowed_packed)
+                _, stats = make(self.config, self.mesh)(
+                    self.bank, frames, poses, refs, masks)
+            self._fused(stats)
+
+        def _fuse_stereo_packed(self, buf):
+            hw2 = 2 * self.config.height * self.config.width
+            with self.timer.stage("dispatch"):
+                step = SH.sharded_fuse_frame_stereo_windowed_packed(
+                    self.config, self._stereo_cfg, self._stereo_filter,
+                    self.mesh)
+                _, stats = step(self.bank, *unpack_payload(
+                    self._upload(buf)[None], hw2))
+            self._fused(stats)
+
+        def _do_compact(self):
+            SH.sharded_compact(self.config, self.mesh)(self.bank)
+            self.compactions += 1
+
+        def _apply_pose_warp(self, wstack, mstack):
+            SH.sharded_warp_by_pose(self.config, self.mesh)(
+                self.bank, self._to_device(wstack[None]),
+                self._to_device(mstack[None]),
+                self._to_device(self._window_np[None]),
+                self._to_device(np.full(1, self._first_local, np.int64)))
+
+    class EagerShardedPool(ShardedSurfelMapping):
+        def _fuse_frame(self, image, depth, pose, ref_index):
+            pose_dev = self._to_device(np.asarray(pose, np.float32)[None])
+            refs = self._to_device(np.full(1, ref_index, np.int32))
+            if isinstance(depth, _StereoPair):
+                step = SH.sharded_fuse_frame_stereo(
+                    self.config, self._stereo_cfg, self._stereo_filter,
+                    self.mesh)
+                _, stats = step(self.bank, self._to_device(depth.buf[None]),
+                                pose_dev, refs, self._to_device(
+                                    np.full(1, self._stereo_bf, np.float32)))
+            else:
+                pi, pd = pad_frame(self.config,
+                                   np.asarray(image, np.float32),
+                                   np.asarray(depth, np.float32))
+                frames = FrameInput(image=self._to_device(pi[None]),
+                                    depth=self._to_device(pd[None]),
+                                    pose=pose_dev, frame_index=refs)
+                _, stats = SH.sharded_fuse_frame(self.config, self.mesh)(
+                    self.bank, SH.shard_frames(self.mesh, frames))
+            self._fuse_epilogue(stats)
+
+        def _do_compact(self):
+            SH.sharded_compact(self.config, self.mesh)(self.bank)
+            self.compactions += 1
+
+        def _extract_chunk(self, ids):
+            _, bufs, ns = SH.sharded_extract_by_pose(
+                self.config, self.mesh, self._per_chunk)(
+                    self.bank, self._to_device(ids))
+            ns = ns[0].cpu().numpy()
+            n = int(ns.sum())
+            if n == 0:
+                return {}, 0
+            host = {k: np.concatenate([
+                v[0].cpu().numpy().reshape(
+                    (self.n_shards, self._per_chunk)
+                    + tuple(v.shape[2:]))[s, :ns[s]]
+                for s in range(self.n_shards)]) for k, v in bufs.items()}
+            if (ns == self._per_chunk).any():
+                return host, self.config.migration_buffer
+            return host, min(n, self.config.migration_buffer - 1)
+
+        def _append_hostslab(self, padded, n):
+            owner = np.arange(n) % self.n_shards
+            fields, ns = {}, np.zeros((1, self.n_shards), np.int32)
+            for k in FIELDS:
+                rows = padded[k][:n]
+                out = np.zeros((1, self.n_shards, self._per_chunk)
+                               + rows.shape[1:], rows.dtype)
+                for s in range(self.n_shards):
+                    part = rows[owner == s]
+                    out[0, s, :len(part)] = part
+                    ns[0, s] = len(part)
+                fields[k] = self._to_device(out.reshape(
+                    (1, -1) + rows.shape[1:]))
+            SH.sharded_append(self.config, self.mesh, self._per_chunk)(
+                self.bank, fields, self._to_device(ns))
+
+        def _apply_active_warp(self, warp):
+            SH.sharded_warp_active(self.config, self.mesh)(
+                self.bank, self._to_device(np.asarray(warp, np.float32)[None]))
+
+    return EagerSharded, EagerShardedPool
+
+
+def same_sharded(a, b) -> bool:
+    """torch.equal on every shard's bank, field by field and count."""
+    return a.n_shards == b.n_shards and all(
+        same_banks(x, y) for ra, rb in zip(a.shards, b.shards)
+        for x, y in zip(ra, rb))
+
+
+def median_line(tag: str, runs: list, what: str) -> str:
+    runs = sorted(runs)
+    return (f"{tag}: {runs[len(runs) // 2]:.2f} frames/s (median of "
+            f"{len(runs)} drives of {what}, steady after the first, graph "
+            f"captures taken out: " + ", ".join(f"{x:.2f}" for x in runs)
+            + ")")
+
+
 def phase_sharded(device, frames, pairs, smi: str) -> dict:
     """The sharded drivers on a (1, 2) mesh of this one card (2 virtual
-    shards): ShardedDeviceResidentMapping, replicated and frame-sharded,
-    depth-fed under the sync check, and stereo, each against the dense
-    DeviceResidentMapping; a loop warp; sharded_sgm_disparity against the
-    replicated plain disparity.  Returns the kernel launches of the sharded
-    drives (eager: their wrappers' counts); the dense references replay
-    their captured steps, held to eager drives by the `graph` phase."""
+    shards), replaying their mesh programs from captured graphs, each
+    against an eager reference of the same driver on the eager mesh
+    programs (`sharded_eager_classes`): torch.equal on every shard's bank
+    (the host pool's arrays equal), before and after a loop warp, and
+    within 1e-4 m of the dense drive: ShardedDeviceResidentMapping,
+    replicated and frame-sharded, depth-fed under the sync check, and
+    stereo; ShardedSurfelMapping over the 60 host-pool frames with its
+    reads allowed.  Launches by the profiler's kernel records; graphed and
+    eager frames/s (median of N_RATE); replays, captures and each MemPool's
+    MiB.  The sharded SGM's graph replay == its eager call == the
+    replicated plain disparity.  Returns the device runs of the kernels in
+    the graphed drives."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.models import stereo as ST
     from densesurfelmapping_tpu_torch.parallel import sgm_sharding
     from densesurfelmapping_tpu_torch.parallel.sharding import make_mesh
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping, ShardedDeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
+    from densesurfelmapping_tpu_torch.pipeline.sharded_driver import (
+        ShardedSurfelMapping)
 
+    EagerSharded, EagerShardedPool = sharded_eager_classes()
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
     mesh = make_mesh(2)
     n_sh = mesh.shape["surfel"]
     label = f"{n_sh} virtual shards on one card ({smi})"
     say("sharded", f"mesh {mesh}: {label}")
+    slic = {k: cfg.sp_iters * n_sh for k in SLIC}
+    no_sgm = dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0)
     total: dict = {}
 
     def add(counts):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
-    def make(kind):
+    def make(kind, cls=None):
         if kind == "dense":
-            return DeviceResidentMapping(cfg, device=device)
-        return ShardedDeviceResidentMapping(
+            return (cls or DeviceResidentMapping)(cfg, device=device)
+        return (cls or ShardedDeviceResidentMapping)(
             cfg, mesh, frame_sharded=(kind == "frame-sharded"))
 
+    def graphs_run(drv, what):
+        require(drv.graphed, f"{what}: the driver is not graphed")
+        replays = (drv._compact_graph.replays,
+                   drv._pose_warp_graph.replays)
+        require(replays == (drv.compactions, 1) and drv.compactions > 0,
+                f"{what}: compaction and warp replays {replays}, want "
+                f"({drv.compactions}, 1)")
+        return replays
+
+    # depth-fed: replicated and frame-sharded
     drive_frames = frames[:N_SHARDED]
     maps, rates = {}, {}
     for kind in ("dense", "sharded", "frame-sharded"):
         feed(make(kind), drive_frames[:2], sync_checked=False)   # warm-up
         drv = make(kind)
-        rates[kind], n = counted(lambda: feed(drv, drive_frames,
-                                              sync_checked=True))
+        _, ex = executed(lambda: feed(drv, drive_frames, sync_checked=True))
         maps[kind] = sharded_rows(drv)
         if kind == "dense":      # the reference (graphed; the graph phase)
             continue
-        add(n)
-        require(drv._fuse_graph is None, f"{kind}: a graph was built")
-        want = 0 if kind == "frame-sharded" else \
-            cfg.sp_iters * N_SHARDED * n_sh
-        require(all(n[k] == want for k in SLIC),
-                f"{kind}: SLIC launches {n}, expected {want} each")
+        add(ex["runs"])
+        per = dict(no_sgm, **(dict.fromkeys(SLIC, 0)
+                              if kind == "frame-sharded" else slic))
+        require(ex["captures"] == 1, f"{kind}: {ex['captures']} steps "
+                f"captured, want 1")
+        check_runs(ex, per, N_SHARDED, f"sharded {kind}")
+        e = make(kind, EagerSharded)
+        feed(e, drive_frames, sync_checked=False)
+        require(same_sharded(drv.bank, e.bank), f"{kind}: graphed != the "
+                f"eager mesh programs (torch.equal, every shard)")
         err = same_map(maps[kind], maps["dense"], kind)
-        require(drv.compactions > 0, f"{kind}: compaction never ran")
-        why = ("3 per frame per shard" if want else "the slabs run the "
-               "plain SLIC functions, as the JAX package's XLA path does")
-        say("sharded", f"{kind} drive, {N_SHARDED} KITTI frames under the "
-            f"sync check: {len(maps[kind]['color'])} surfels == the dense "
-            f"drive's within {err:.3g} m (bound {SHARDED_TOL_M}); SLIC "
-            f"launches {dict((k, n[k]) for k in SLIC)} ({why}); "
-            f"{drv.compactions} compactions")
-        if kind == "sharded":
-            say("sharded", f"loop warp: every live surfel moved by the "
-                f"shift within {check_warp(drv):.2e} m (bound {WARP_TOL_M})")
-    say("sharded", f"steady frames/s: dense (graphed) "
-        f"{rates['dense']:.2f}, "
-        f"sharded {rates['sharded']:.2f}, frame-sharded "
-        f"{rates['frame-sharded']:.2f} ({label}: the replicated work runs "
-        f"once per shard on the same card; no multi-card scaling is "
-        f"measured)")
+        werr = check_warp(drv)
+        check_warp(e)
+        require(same_sharded(drv.bank, e.bank), f"{kind}: after the loop "
+                f"warp graphed != eager")
+        replays = graphs_run(drv, kind)
+        why = ("3 per frame per shard" if per["slic_assign"] else "the "
+               "slabs run the plain SLIC functions, as the JAX package's "
+               "XLA path does")
+        say("sharded", f"{kind} drive, {N_SHARDED} KITTI frames, graphed, "
+            f"under the sync check after the first frame: every shard "
+            f"torch.equal to the eager mesh programs' before and after a "
+            f"loop warp (within {werr:.2e} m of the shift); "
+            f"{len(maps[kind]['color'])} surfels == the dense drive's within "
+            f"{err:.3g} m (bound {SHARDED_TOL_M}); captures: 1 step "
+            f"({drv._fuse_graph.capture_ms:.1f} ms) + {ex['programs']} bank "
+            f"program in the feed; replays: step {drv._fuse_graph.replays}, "
+            f"compaction {replays[0]}, pose warp {replays[1]}; device runs "
+            f"{dict((k, ex['runs'][k]) for k in SLIC)} ({why}); "
+            f"{pools_line(drv)}")
+        del drv, e
+    for kind in ("sharded", "frame-sharded"):
+        drv = make(kind)
+        step, _ = steps_of(drv, drive_frames)
+        say("sharded", prof_line(f"{kind} graphed, {N_PROF} frames under "
+                                 f"the profiler", profiled(step, 2, N_PROF)))
+        del drv
+    for kind in ("dense", "sharded", "frame-sharded"):
+        classes = (("graphed", None),) if kind == "dense" else (
+            ("graphed", None), ("eager", EagerSharded))
+        for name, cls in classes:
+            runs = [rated(lambda: make(kind, cls), drive_frames, None, 0,
+                          N_SHARDED)[0] for _ in range(N_RATE)]
+            rates[(kind, name)] = sorted(runs)[N_RATE // 2]
+            say("sharded", median_line(f"{kind} {name}", runs,
+                                       f"{N_SHARDED} frames") + f" ({label})")
 
     # stereo: the matcher once per shard and frame
     pairs = pairs[:N_SHARDED_STEREO]
+    scfg = sgm_config()
     smaps = {}
     for kind in ("dense", "sharded"):
-        feed_pairs(make(kind), pairs[:2], sgm_config(),
-                   sync_checked=False)                          # warm-up
+        feed_pairs(make(kind), pairs[:2], scfg, sync_checked=False)
         drv = make(kind)
-        if kind == "dense":      # graphed: its launches by the profiler
-            _, ex = executed(lambda: feed_pairs(drv, pairs, sgm_config(),
-                                                sync_checked=True))
-            add(ex["runs"])
-            check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1,
-                                **{k: cfg.sp_iters for k in SLIC}),
-                       N_SHARDED_STEREO, "dense stereo drive")
-            smaps[kind] = sharded_rows(drv)
-            continue
-        _, n = counted(lambda: feed_pairs(drv, pairs, sgm_config(),
-                                          sync_checked=True))
-        add(n)
+        _, ex = executed(lambda: feed_pairs(drv, pairs, scfg,
+                                            sync_checked=True))
+        add(ex["runs"])
+        k_sh = 1 if kind == "dense" else n_sh
+        check_runs(ex, dict(sgm_census_x=k_sh, sgm_census_y=k_sh,
+                            sgm_axis_scan=0,
+                            **{k: cfg.sp_iters * k_sh for k in SLIC}),
+                   N_SHARDED_STEREO, f"{kind} stereo drive")
         smaps[kind] = sharded_rows(drv)
-        require(drv._stereo_graph is None, "sharded stereo: a graph was "
-                "built")
-        require(n["sgm_census_x"] == n["sgm_census_y"]
-                == N_SHARDED_STEREO * n_sh,
-                f"stereo {kind}: B5/B6 launches {n}")
-        require(all(n[k] == cfg.sp_iters * N_SHARDED_STEREO * n_sh
-                    for k in SLIC), f"stereo {kind}: SLIC launches {n}")
+        if kind == "dense":
+            continue
+        require(ex["captures"] == 1, f"sharded stereo: {ex['captures']} "
+                f"steps captured")
+        e = make(kind, EagerSharded)
+        feed_pairs(e, pairs, scfg, sync_checked=False)
+        require(same_sharded(drv.bank, e.bank), "sharded stereo: graphed != "
+                "the eager mesh programs")
+        werr = check_warp(drv)
+        check_warp(e)
+        require(same_sharded(drv.bank, e.bank), "sharded stereo: after the "
+                "loop warp graphed != eager")
+        stereo_replays = drv._stereo_graph.replays
+        stereo_pools = pools_line(drv)
+        del drv, e
     err = same_map(smaps["sharded"], smaps["dense"], "sharded stereo")
-    say("sharded", f"stereo ({N_SHARDED_STEREO} pairs, --sgm) under the "
-        f"sync check: {len(smaps['sharded']['color'])} surfels == the dense "
-        f"stereo drive's within {err:.3g} m; B5/B6 once per frame per shard")
+    say("sharded", f"stereo ({N_SHARDED_STEREO} pairs, --sgm), graphed, "
+        f"under the sync check after the first pair: every shard torch.equal "
+        f"to the eager mesh programs' before and after a loop warp (within "
+        f"{werr:.2e} m); {len(smaps['sharded']['color'])} surfels == the "
+        f"dense stereo drive's within {err:.3g} m; B5/B6 once per pair per "
+        f"shard (profiler records); step replays {stereo_replays}; "
+        f"{stereo_pools}")
 
-    # the host-pool driver over the mesh: eager mesh programs, no graph,
-    # against the dense host-pool SurfelMapping (its graphs) fed the same
-    # padded f32 frames (the sharded driver has no compact upload)
-    from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
-    from densesurfelmapping_tpu_torch.pipeline.sharded_driver import (
-        ShardedSurfelMapping)
+    def stereo_make(cls):
+        def build():
+            drv = make("sharded", cls)
+            drv.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
+                              stereo_config=scfg)
+            return drv
+        return build
+
+    step, _ = steps_of(stereo_make(None)(), None, pairs)
+    say("sharded", prof_line(f"sharded stereo graphed, "
+                             f"{N_SHARDED_STEREO - 2} pairs under the "
+                             f"profiler", profiled(step, 2,
+                                                   N_SHARDED_STEREO - 2)))
+    for name, cls in (("graphed", None), ("eager", EagerSharded)):
+        runs = [rated(stereo_make(cls), None, pairs, 0,
+                      N_SHARDED_STEREO)[0] for _ in range(N_RATE)]
+        say("sharded", median_line(f"sharded stereo {name}", runs,
+                                   f"{N_SHARDED_STEREO} pairs")
+            + f" ({label})")
+
+    # the host-pool driver over the mesh against its eager reference and
+    # the dense host-pool SurfelMapping, fed the same padded f32 frames
     hp_cfg = dataclasses.replace(cfg, compaction_slack=HOST_POOL_SLACK,
                                  compact_upload=False)
-    hp = {}
-    for kind in ("dense", "sharded"):
-        make = ((lambda: SurfelMapping(hp_cfg, device=device))
-                if kind == "dense" else
-                (lambda: ShardedSurfelMapping(hp_cfg, mesh)))
-        warm = host_pool_feeder(make(), drive_frames)
-        warm(0)
-        warm(1)
-        drv = make()
-        one = host_pool_feeder(drv, frames)
-        t0 = time.perf_counter()
-        (_, n) = counted(lambda: [one(i) for i in range(len(frames))])
-        torch.cuda.synchronize()
-        hp[kind] = dict(drv=drv, secs=time.perf_counter() - t0,
-                        bank=sharded_rows(drv),
-                        pool=sharded_rows_of(drv.pool.all_surfels()))
-        if kind == "sharded":
-            add(n)
-            require(all(getattr(drv, g) is None for g in HOST_POOL_GRAPHS),
-                    "sharded host pool: a graph was built")
-            require(all(n[k] == cfg.sp_iters * len(frames) * n_sh
-                        for k in SLIC), f"sharded host pool: SLIC launches "
-                    f"{n}")
-    err = max(same_map(hp["sharded"]["bank"], hp["dense"]["bank"],
+    d = drive_host_pool(SurfelMapping, hp_cfg, device, frames)[0]
+    say("sharded", f"dense host-pool SurfelMapping (padded upload), "
+        f"{len(frames)} frames: {pools_line(d)} ({smi})")
+    (g, _, _, reads), ex = executed(lambda: drive_host_pool(
+        ShardedSurfelMapping, hp_cfg, device, frames, sync_checked=True,
+        mesh=mesh))
+    add(ex["runs"])
+    require(ex["captures"] == 1 and g.graphed, f"sharded host pool: "
+            f"{ex['captures']} steps captured, graphed {g.graphed}")
+    check_runs(ex, dict(no_sgm, **slic), len(frames), "sharded host pool")
+    e = drive_host_pool(EagerShardedPool, hp_cfg, device, frames,
+                        mesh=mesh)[0]
+    require(same_sharded(g.bank, e.bank) and same_pool(g.pool, e.pool),
+            "sharded host pool: graphed != the eager mesh programs (banks "
+            "torch.equal, pool arrays equal)")
+    err = max(same_map(sharded_rows(g), sharded_rows(d),
                        "sharded host pool bank"),
-              same_map(hp["sharded"]["pool"], hp["dense"]["pool"],
+              same_map(sharded_rows_of(g.pool.all_surfels()),
+                       sharded_rows_of(d.pool.all_surfels()),
                        "sharded host pool pool"))
-    sh = hp["sharded"]["drv"]
-    say("sharded", f"ShardedSurfelMapping (host pool, eager mesh programs, "
-        f"no graph built), {len(frames)} KITTI frames (migrations and the "
-        f"re-activation of `host_pool_feeder`): bank "
-        f"({len(hp['sharded']['bank']['color'])} surfels) and pool "
-        f"({len(sh.pool)} surfels) == the dense host-pool SurfelMapping's "
-        f"within {err:.3g} m (bound {SHARDED_TOL_M}); loop warp within "
-        f"{check_warp(sh):.2e} m; {len(frames) / hp['sharded']['secs']:.2f} "
-        f"frames/s against the dense driver's graphs' "
-        f"{len(frames) / hp['dense']['secs']:.2f} (first frame and "
-        f"captures included; {label})")
+    # the mesh step compacts each shard's slab every frame (the JAX
+    # design), so no stats frame asks for a compaction within these
+    # frames: the driver's compaction runs once here, from its graph
+    for drv in (g, e):
+        drv._do_compact()
+    werr = check_warp(g)
+    check_warp(e)
+    require(same_sharded(g.bank, e.bank) and same_pool(g.pool, e.pool),
+            "sharded host pool: after a compaction and the loop warp "
+            "graphed != eager")
+    replays = {name: getattr(g, f"_{name}_graph").replays for name in
+               ("fuse", "compact", "extract", "append", "warp")}
+    require(replays["warp"] == 1 and replays["compact"] == g.compactions
+            and g.compactions > 0 and replays["extract"] > 0
+            and replays["append"] > 0 and len(g.pool) > 0,
+            f"sharded host pool: replays {replays}, {g.compactions} "
+            f"compactions, pool {len(g.pool)}")
+    say("sharded", f"ShardedSurfelMapping (host pool, padded upload), "
+        f"{len(frames)} KITTI frames (migrations and the re-activation of "
+        f"`host_pool_feeder`), graphed: banks torch.equal and pool "
+        f"({len(g.pool)} surfels) equal to the eager mesh programs', before "
+        f"and after a compaction and a loop warp (within {werr:.2e} m); "
+        f"bank and pool == "
+        f"the dense host-pool SurfelMapping's within {err:.3g} m (bound "
+        f"{SHARDED_TOL_M}); replays {replays} ({g.compactions} "
+        f"compactions); captures: 1 step "
+        f"({g._fuse_graph.capture_ms:.1f} ms) + {ex['programs']} bank "
+        f"programs; sync check: {reads['frames'] - reads['reading']} of "
+        f"{reads['frames']} frames after the first read nothing, the rest "
+        f"only in " + ", ".join(f"{k} x{reads[k]}" for k in
+                                HOST_POOL_READS + ("capture",))
+        + f"; {pools_line(g)}")
+    del d, g, e
+    for name, cls in (("dense graphed", SurfelMapping),
+                      ("sharded graphed", ShardedSurfelMapping),
+                      ("sharded eager", EagerShardedPool)):
+        runs = [drive_host_pool(cls, hp_cfg, device, frames,
+                                mesh=None if cls is SurfelMapping
+                                else mesh)[1] for _ in range(N_RATE)]
+        say("sharded", median_line(f"host pool {name}", runs,
+                                   f"{len(frames)} frames") + f" ({label})")
 
-    # sharded_sgm_disparity: bitwise the replicated plain disparity
-    scfg = sgm_config()._replace(sgm_pallas=False)
+    # sharded_sgm_disparity: the graph replay == the eager call == the
+    # replicated plain disparity
+    scfg_p = scfg._replace(sgm_pallas=False)
     for tag, (li, ri, _, _) in (("61 x 97 crop", pairs[0]),
                                 ("KITTI", pairs[0])):
         left = torch.from_numpy(li).to(device).float()
         right = torch.from_numpy(ri).to(device).float()
         if tag != "KITTI":
             left, right = left[100:161, 300:397], right[100:161, 300:397]
-            cfg_c = scfg._replace(max_disparity=40, min_disparity=3)
+            cfg_c = scfg_p._replace(max_disparity=40, min_disparity=3)
         else:
-            cfg_c = scfg
+            cfg_c = scfg_p
         h, w = left.shape
         want = ST.disparity(left, right, cfg_c)
-        t0 = time.perf_counter()
-        got = sgm_sharding.sharded_sgm_disparity(mesh, cfg_c, h, w)(left,
-                                                                   right)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        require(torch.equal(got, want), f"sharded_sgm_disparity ({tag}) != "
-                f"the replicated plain disparity")
+        t0 = time.perf_counter()
+        eager = sgm_sharding.sharded_sgm_disparity(mesh, cfg_c, h, w)(
+            left, right)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        graph = sgm_sharding.graphed_sharded_sgm_disparity(mesh, cfg_c, h, w)
+        first = graph(left, right).clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = graph(left, right)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        require(graph.graphed and graph.replays == 2,
+                f"sharded SGM ({tag}): graphed {graph.graphed}, replays "
+                f"{graph.replays}")
+        require(torch.equal(first, eager) and torch.equal(got, eager)
+                and torch.equal(got, want), f"sharded_sgm_disparity "
+                f"({tag}): replay != eager call != replicated plain")
         say("sharded", f"sharded_sgm_disparity {tag} ({h} x {w}, "
             f"{cfg_c.max_disparity - cfg_c.min_disparity} disparities, "
-            f"{cfg_c.sgm_paths} paths) on {n_sh} shards == replicated "
-            f"(torch.equal), valid {float((want > 0).float().mean()):.3f}; "
-            f"{secs:.2f} s (plain scans)")
+            f"{cfg_c.sgm_paths} paths) on {n_sh} shards: the graph's "
+            f"replays == its eager call == replicated (torch.equal), valid "
+            f"{float((want > 0).float().mean()):.3f}; eager {eager_s:.3f} s, "
+            f"capture {graph.capture_ms / 1e3:.3f} s, replay {replay_s:.3f} "
+            f"s (plain scans; {label})")
+        del graph
     return total
 
 

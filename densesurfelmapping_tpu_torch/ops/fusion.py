@@ -299,3 +299,15 @@ def compact_and_append(bank: SurfelBank, new_fields: dict,
     compacted = SurfelBank(**out, count=n_live + n_new)
     return compacted, dict(n_live=n_live, n_new=n_new,
                            n_dropped=n_new_want - n_new)
+
+
+def compact_and_append_(bank: SurfelBank, new_fields: dict,
+                        new_mask: torch.Tensor) -> dict:
+    """`compact_and_append` written into the bank's own tensors (the JAX
+    program donates the bank): the compacted slab is copied back, so the
+    bank keeps its tensors and their addresses, which a captured graph
+    holds.  Bitwise the out-of-place result; returns its stats."""
+    compacted, stats = compact_and_append(bank, new_fields, new_mask)
+    for k in FIELDS + ("count",):
+        getattr(bank, k).copy_(getattr(compacted, k))
+    return stats

@@ -254,3 +254,50 @@ def sharded_fuse_frame_framestage_windowed_packed(config: SurfelMapConfig,
                 pose_masks=sharding._replicate(masks[b], row)))
         return banks, sharding._stack_streams(per_stream)
     return step
+
+
+def _slab_geometries(config: SurfelMapConfig, mesh: sharding.Mesh):
+    """Every shard's slab geometry (`slab_geometry`, an lru_cache of device
+    tensors that may evict them) and the full-frame planes the fuse tail
+    reads (`sharding.step_geometry`): what a graph of the column-sharded
+    step reads and keeps alive."""
+    n = mesh.shape["surfel"]
+    return [slab_geometry(config, n, s, dev) for row in mesh.grid
+            for s, dev in enumerate(row)] + sharding.step_geometry(config,
+                                                                   mesh)
+
+
+def graphed_fuse_frame_framestage(config: SurfelMapConfig,
+                                  mesh: sharding.Mesh,
+                                  banks: sharding.ShardedBanks, pool=None):
+    """`sharded_fuse_frame_framestage` as a graph (the JAX package's
+    densesurfelmapping_tpu/parallel/frame_sharding.py:232-262): the input
+    and outputs of `sharding.graphed_fuse_frame`."""
+    fuse = sharded_fuse_frame_framestage(config, mesh)
+
+    def step(b: sharding.ShardedBanks, payload: torch.Tensor) -> dict:
+        frames, _ = sharding.unpack_padded(config, payload)
+        return fuse(b, sharding.shard_frames(mesh, frames))[1]
+
+    return sharding.mesh_step_graph(
+        mesh, banks, step, sharding.padded_payload_bytes(config, mask=False),
+        pool, _slab_geometries(config, mesh))
+
+
+def graphed_fuse_frame_framestage_windowed_packed(
+        config: SurfelMapConfig, mesh: sharding.Mesh,
+        banks: sharding.ShardedBanks, pool=None):
+    """`sharded_fuse_frame_framestage_windowed_packed` as a graph (:265-304):
+    the one-buffer payload of `sharding.graphed_fuse_frame_windowed_packed`.
+    `ShardedDeviceResidentMapping(frame_sharded=True)`'s depth-fed step."""
+    from ..pipeline.fuse_step import onebuf_bytes
+    from .multistream import unpack_payload
+    fuse = sharded_fuse_frame_framestage_windowed_packed(config, mesh)
+    hw3 = 3 * config.height * config.width
+
+    def step(b: sharding.ShardedBanks, payload: torch.Tensor) -> dict:
+        bufs, poses, refs, _, masks = unpack_payload(payload, hw3)
+        return fuse(b, bufs, poses, refs, masks)[1]
+
+    return sharding.mesh_step_graph(mesh, banks, step, onebuf_bytes(config),
+                                pool, _slab_geometries(config, mesh))

@@ -37,7 +37,7 @@ from ..models.stereo import (StereoConfig, _SGM_BIG, _SGM_BIG_BF16,
                              _axis_scan, _census, _census_volume,
                              _popcount32, _post_filters, _sgm_dp,
                              _wta_and_gates)
-from .sharding import Mesh, _to
+from .sharding import Mesh, _to, graphed_mesh
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,6 +62,14 @@ def _slab_cost_cols(cl_s: torch.Tensor, cr_full: torch.Tensor, col0: int,
     return torch.stack(costs)
 
 
+def _carry_penalties(p1: float, p2: float, carry_bf16: bool):
+    """P1, P2 rounded to the carry dtype, as `_axis_scan` takes them: a
+    host-only rounding through a CPU tensor, made once when a program is
+    built, outside any captured call."""
+    cdt = torch.bfloat16 if carry_bf16 else torch.float32
+    return tuple(float(torch.tensor(p, dtype=cdt)) for p in (p1, p2))
+
+
 def _ring_axis_scan(slabs: List[torch.Tensor], rolls, p1: float, p2: float,
                     w_real: int, min_d: int,
                     carry_bf16: bool = False) -> List[torch.Tensor]:
@@ -69,14 +77,13 @@ def _ring_axis_scan(slabs: List[torch.Tensor], rolls, p1: float, p2: float,
     ..., entry="y")` over column slabs (`slabs[s]`: (H, wn, D), global
     columns [s * wn, (s + 1) * wn)), the shards in lockstep: at every step
     each roll != 0 channel takes its boundary carry column from the ring
-    neighbour its roll crosses from.  Returns each slab's f32 path sums."""
+    neighbour its roll crosses from.  Returns each slab's f32 path sums.
+    p1, p2: the penalties already in carry dtype (`_carry_penalties`)."""
     n = len(slabs)
     g = len(rolls)
     H, wn, D = slabs[0].shape
     cdt = torch.bfloat16 if carry_bf16 else torch.float32
     clamp = _SGM_BIG_BF16 if carry_bf16 else None
-    # the penalties in carry dtype, as `_axis_scan` takes them
-    p1, p2 = (float(torch.tensor(p, dtype=cdt)) for p in (p1, p2))
     xg = [torch.arange(wn, device=v.device)[:, None] + s * wn
           for s, v in enumerate(slabs)]
     kd = [torch.arange(D, device=v.device)[None, :] for v in slabs]
@@ -146,6 +153,7 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
     bf16 = cfg.sgm_carry_bf16
     min_d = cfg.min_disparity
     n_d = cfg.max_disparity - cfg.min_disparity
+    cp1, cp2 = _carry_penalties(p1, p2, bf16)
 
     def run(left, right, prior_disp=None):
         home = left.device
@@ -176,7 +184,7 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
             sums = [_axis_scan(v, (0,), p1, p2, carry_bf16=bf16)
                     for v in vv]
         else:
-            sums = _ring_axis_scan(vv, (0, 1, -1), p1, p2, w, min_d,
+            sums = _ring_axis_scan(vv, (0, 1, -1), cp1, cp2, w, min_d,
                                    carry_bf16=bf16)
         y_agg = torch.cat([_to(y.permute(2, 0, 1), home) for y in sums],
                           2)[:, :, :w]
@@ -185,3 +193,23 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
         return _post_filters(out, cfg)
 
     return run
+
+
+def graphed_sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig,
+                                  height: int, width: int,
+                                  with_prior: bool = False):
+    """`sharded_sgm_disparity` as a captured graph (the JAX package's
+    `jax.jit(run)`, densesurfelmapping_tpu/parallel/sgm_sharding.py:296),
+    its height and width fixed when it is built: a `fuse_step.BankGraph`
+    without a bank whose static inputs are left and right ((H, W) f32) and,
+    if `with_prior`, prior_disp, on the home cell.  Call: (left, right[,
+    prior_disp]) -> the (H, W) disparity, a static output that the next
+    call overwrites.  Eager on a CPU mesh and on a mesh over several cards
+    (`sharding.graphed_mesh`)."""
+    from ..pipeline.fuse_step import BankGraph
+    run = sharded_sgm_disparity(mesh, cfg, height, width)
+    spec = ((height, width), torch.float32)
+    row = Mesh([mesh.grid[0]])
+    return BankGraph(lambda _, *images: run(*images), None,
+                     (spec,) * (3 if with_prior else 2),
+                     graphed=graphed_mesh(row), device=mesh.device(0, 0))

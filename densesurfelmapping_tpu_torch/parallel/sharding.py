@@ -53,6 +53,10 @@ class Mesh:
     def device(self, row: int, shard: int) -> torch.device:
         return self.grid[row][shard]
 
+    def devices(self) -> List[torch.device]:
+        """The distinct devices of the grid, in row-major order."""
+        return list(dict.fromkeys(d for row in self.grid for d in row))
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {self.grid})"
 
@@ -251,10 +255,8 @@ def _fuse_stream(config: SurfelMapConfig, row: List[SurfelBank],
             # round-robin ownership of new surfels by seed index
             seed_idx = torch.arange(new_mask.shape[0], device=new_mask.device)
             new_mask = new_mask & (seed_idx % n == s)
-            bank, st = fusion.compact_and_append(row[s], new_fields,
-                                                 new_mask)
-            row[s] = bank
-            per_shard.append(st)
+            per_shard.append(fusion.compact_and_append_(row[s], new_fields,
+                                                        new_mask))
     stats = {k: functools.reduce(torch.add, [_to(st[k], row[0].device)
                                              for st in per_shard])
              for k in ("n_live", "n_new", "n_dropped")}
@@ -510,3 +512,219 @@ def sharded_warp_active(config: SurfelMapConfig, mesh: Mesh):
                 warp_ops.warp_active(bank, _to(warps[b], bank.device))
         return banks
     return warp
+
+
+# ----------------------------------------------------------------------
+# the mesh programs as captured CUDA graphs (the JAX package's
+# `jax.jit(jax.shard_map(...))`): one `fuse_step.BankGraph` over the
+# mesh's banks each, its static inputs on the home cell
+# ----------------------------------------------------------------------
+def graphed_mesh(mesh: Mesh) -> bool:
+    """Whether a mesh's programs replay captured graphs: every cell is the
+    same card.  The design is one graph per device; on one card that is
+    one graph over every shard's program and the collectives (whose copies
+    are then no-ops).  A mesh over several cards would join its per-card
+    graphs by events, which is neither built nor verified, so it keeps the
+    eager mesh programs (the factories below build their objects with
+    graphed=False); a CPU mesh runs them eagerly too."""
+    devs = mesh.devices()
+    return len(devs) == 1 and devs[0].type == "cuda"
+
+
+def mesh_step_graph(mesh: Mesh, banks: ShardedBanks, step, nbytes: int,
+                    pool, keep):
+    """A mesh fuse step as a StepGraph: one (B, nbytes) u8 payload, the
+    stats (B,) each as outputs."""
+    from ..pipeline.fuse_step import StepGraph
+    return StepGraph(step, banks, (banks.n_streams, nbytes), pool, keep,
+                     graphed=graphed_mesh(mesh))
+
+
+def mesh_bank_graph(mesh: Mesh, banks: ShardedBanks, fn, specs, pool):
+    from ..pipeline.fuse_step import BankGraph
+    return BankGraph(fn, banks, specs, pool, graphed=graphed_mesh(mesh))
+
+
+def step_geometry(config: SurfelMapConfig, mesh: Mesh):
+    """The cached geometry planes the replicated frame stage reads on every
+    device of the mesh (kept alive by its graph: the cache may evict
+    them)."""
+    return [superpixel.device_geometry(config, d) for d in mesh.devices()]
+
+
+def padded_payload_bytes(config: SurfelMapConfig, mask: bool) -> int:
+    """Length of a padded-frame payload: the padded f32 image and depth
+    planes, then `core.state.pack_aux`'s 72-byte head and, if `mask`, the
+    (max_keyframes,) window mask."""
+    from ..core.state import AUX_HEAD_BYTES
+    from ..pipeline.fuse_step import padded_frame_bytes
+    return padded_frame_bytes(config) + AUX_HEAD_BYTES \
+        + (config.max_keyframes if mask else 0)
+
+
+def unpack_padded(config: SurfelMapConfig, payload: torch.Tensor):
+    """Decode of a (B, padded_payload_bytes) u8 payload: (a batched
+    FrameInput, window masks (B, P) bool, empty without the mask)."""
+    from ..pipeline.fuse_step import padded_frame_bytes
+    from .multistream import _bytes_as, unpack_payload
+    b = payload.shape[0]
+    ph, pw = config.padded_height, config.padded_width
+    planes, poses, refs, _, masks = unpack_payload(
+        payload, padded_frame_bytes(config))
+    planes = _bytes_as(planes, torch.float32).view(b, 2, ph, pw)
+    return FrameInput(image=planes[:, 0], depth=planes[:, 1], pose=poses,
+                      frame_index=refs), masks
+
+
+def graphed_fuse_frame(config: SurfelMapConfig, mesh: Mesh,
+                       banks: ShardedBanks, pool=None):
+    """`sharded_fuse_frame` as a graph (the JAX package's
+    `sharded_fuse_frame`, densesurfelmapping_tpu/parallel/sharding.py:
+    86-115): input the (B, padded_payload_bytes(mask=False)) payload of
+    each stream's padded planes, pose and frame index; returns the stats.
+    `ShardedSurfelMapping`'s depth-fed step."""
+    fuse = sharded_fuse_frame(config, mesh)
+
+    def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
+        frames, _ = unpack_padded(config, payload)
+        return fuse(b, shard_frames(mesh, frames))[1]
+
+    return mesh_step_graph(mesh, banks, step,
+                           padded_payload_bytes(config, mask=False), pool,
+                           step_geometry(config, mesh))
+
+
+def graphed_fuse_frame_windowed(config: SurfelMapConfig, mesh: Mesh,
+                                banks: ShardedBanks, pool=None):
+    """`sharded_fuse_frame_windowed` as a graph (:119-144): input the
+    (B, padded_payload_bytes(mask=True)) payload, the window mask after
+    the aux head."""
+    fuse = sharded_fuse_frame_windowed(config, mesh)
+
+    def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
+        frames, masks = unpack_padded(config, payload)
+        return fuse(b, shard_frames(mesh, frames), masks)[1]
+
+    return mesh_step_graph(mesh, banks, step,
+                           padded_payload_bytes(config, mask=True), pool,
+                           step_geometry(config, mesh))
+
+
+def graphed_fuse_frame_windowed_packed(config: SurfelMapConfig, mesh: Mesh,
+                                       banks: ShardedBanks, pool=None):
+    """`sharded_fuse_frame_windowed_packed` as a graph (:148-179): input
+    each stream's one-buffer payload (`core.state.pack_frame_with_aux`,
+    (B, 3 H W + 72 + P) u8), the dense driver's; returns the stats.
+    `ShardedDeviceResidentMapping`'s depth-fed step."""
+    from ..pipeline.fuse_step import onebuf_bytes
+    from .multistream import unpack_payload
+    fuse = sharded_fuse_frame_windowed_packed(config, mesh)
+    hw3 = 3 * config.height * config.width
+
+    def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
+        bufs, poses, refs, _, masks = unpack_payload(payload, hw3)
+        return fuse(b, bufs, poses, refs, masks)[1]
+
+    return mesh_step_graph(mesh, banks, step, onebuf_bytes(config), pool,
+                           step_geometry(config, mesh))
+
+
+def graphed_fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
+                                              stereo_config,
+                                              filter_depth: bool,
+                                              mesh: Mesh,
+                                              banks: ShardedBanks,
+                                              pool=None):
+    """`sharded_fuse_frame_stereo_windowed_packed` as a graph (:183-236):
+    input each stream's stereo one-buffer payload (`core.state.
+    pack_stereo_with_aux`, (B, 2 H W + 72 + P) u8).
+    `ShardedDeviceResidentMapping`'s stereo step."""
+    from ..pipeline.fuse_step import stereo_onebuf_bytes
+    from .multistream import unpack_payload
+    fuse = sharded_fuse_frame_stereo_windowed_packed(
+        config, stereo_config, filter_depth, mesh)
+    hw2 = 2 * config.height * config.width
+
+    def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
+        return fuse(b, *unpack_payload(payload, hw2))[1]
+
+    return mesh_step_graph(mesh, banks, step, stereo_onebuf_bytes(config),
+                           pool, step_geometry(config, mesh))
+
+
+def graphed_fuse_frame_stereo(config: SurfelMapConfig, stereo_config,
+                              filter_depth: bool, mesh: Mesh,
+                              banks: ShardedBanks, pool=None):
+    """`sharded_fuse_frame_stereo` as a graph (:240-278): input each
+    stream's packed pair and 72-byte aux head (pose, frame index, bf),
+    (B, 2 H W + 72) u8.  `ShardedSurfelMapping`'s stereo step."""
+    from ..core.state import AUX_HEAD_BYTES
+    from .multistream import unpack_payload
+    fuse = sharded_fuse_frame_stereo(config, stereo_config, filter_depth,
+                                     mesh)
+    hw2 = 2 * config.height * config.width
+
+    def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
+        bufs, poses, refs, bfs, _ = unpack_payload(payload, hw2)
+        return fuse(b, bufs, poses, refs, bfs)[1]
+
+    return mesh_step_graph(mesh, banks, step, hw2 + AUX_HEAD_BYTES, pool,
+                           step_geometry(config, mesh))
+
+
+def graphed_warp_by_pose(config: SurfelMapConfig, mesh: Mesh,
+                         banks: ShardedBanks, pool=None):
+    """`sharded_warp_by_pose` as a graph (:282-298).  Inputs, with P =
+    config.max_keyframes: warps (B, P, 4, 4) f32, moved (B, P) bool, the
+    window masks (B, P) bool, firsts (B,) i64."""
+    B, P = banks.n_streams, config.max_keyframes
+    return mesh_bank_graph(
+        mesh, banks, sharded_warp_by_pose(config, mesh),
+        (((B, P, 4, 4), torch.float32), ((B, P), torch.bool),
+         ((B, P), torch.bool), ((B,), torch.int64)), pool)
+
+
+def graphed_compact(config: SurfelMapConfig, mesh: Mesh,
+                    banks: ShardedBanks, pool=None):
+    """`sharded_compact` as a graph (:313-327); no input."""
+    return mesh_bank_graph(mesh, banks, sharded_compact(config, mesh), (),
+                           pool)
+
+
+def graphed_extract_by_pose(config: SurfelMapConfig, mesh: Mesh,
+                            banks: ShardedBanks, buffer_size: int,
+                            pool=None):
+    """`sharded_extract_by_pose` as a graph (:330-355): input the
+    (MAX_REMOVE_POSES,) i32 pose ids, padded with -1; returns (buffers
+    dict, counts (B, n_shards)), static outputs on the home cell."""
+    from ..ops.migration import MAX_REMOVE_POSES
+    extract = sharded_extract_by_pose(config, mesh, buffer_size)
+    return mesh_bank_graph(mesh, banks, lambda b, ids: extract(b, ids)[1:],
+                           (((MAX_REMOVE_POSES,), torch.int32),), pool)
+
+
+def graphed_append(config: SurfelMapConfig, mesh: Mesh, banks: ShardedBanks,
+                   per_buf: int, pool=None):
+    """`sharded_append` as a graph (:358-386).  Inputs: the slab's fields
+    in `FIELDS` order, (B, n_shards * per_buf, ...) each, then ns (B,
+    n_shards) i32."""
+    B, n = banks.n_streams, banks.n_shards
+    one = banks.shards[0][0]
+    specs = [((B, n * per_buf) + getattr(one, k).shape[1:],
+              getattr(one, k).dtype) for k in FIELDS] \
+        + [((B, n), torch.int32)]
+    append = sharded_append(config, mesh, per_buf)
+
+    def run(b: ShardedBanks, *args) -> None:
+        *fields, ns = args
+        append(b, dict(zip(FIELDS, fields)), ns)
+
+    return mesh_bank_graph(mesh, banks, run, specs, pool)
+
+
+def graphed_warp_active(config: SurfelMapConfig, mesh: Mesh,
+                        banks: ShardedBanks, pool=None):
+    """`sharded_warp_active` as a graph (:389-403): input the (B, 4, 4)
+    f32 warps."""
+    return mesh_bank_graph(mesh, banks, sharded_warp_active(config, mesh),
+                           (((banks.n_streams, 4, 4), torch.float32),), pool)

@@ -299,85 +299,72 @@ class DeviceResidentMapping(SurfelMapping):
         self._host_rows = None
 
 
-
 class ShardedDeviceResidentMapping(DeviceResidentMapping):
     """DeviceResidentMapping over a device mesh: the window-mask lifecycle
     (no steady-state readbacks) with the bank split in row slabs over the
     mesh's "surfel" axis (`parallel/sharding.py`).
 
-    Each frame's payload is the dense driver's one packed buffer, uploaded
-    once and decoded on the device, so sharded and dense drives fuse the
-    same frames; fuse, loop warp and compaction run on every shard.
-    frame_sharded=True splits the superpixel/plane-fit stage by image
-    columns over the shards (`parallel/frame_sharding.py`); the map is the
-    same either way.  Stats stay on the device; the bank's count is read
-    only by the readouts."""
+    Each frame's payload is the dense driver's one packed buffer, one
+    pinned copy into the static input of the mesh step captured as a graph
+    (`sharding.graphed_fuse_frame_windowed_packed`, the JAX driver's
+    jitted `sharded_fuse_frame_windowed_packed`), decoded on the device, so
+    sharded and dense drives fuse the same frames; fuse, loop warp and
+    compaction run on every shard, each replayed from its graph and
+    rebuilt where the dense driver rebuilds its graphs.  frame_sharded=True
+    splits the superpixel/plane-fit stage by image columns over the shards
+    (`parallel/frame_sharding.py`); the map is the same either way.  Stats
+    stay on the device; the bank's count is read only by the readouts.  On
+    a mesh over several cards the programs run as the eager mesh programs
+    (`graphed` False)."""
 
     def __init__(self, config: SurfelMapConfig, mesh,
                  kitti_alignment: bool = False, frame_sharded: bool = False):
-        from ..parallel import frame_sharding, sharding
         if mesh.shape["data"] != 1:
             raise ValueError("one session per data row")
         self.mesh = mesh
         self.n_shards = mesh.shape["surfel"]
         self.frame_sharded = bool(frame_sharded)
         super().__init__(config, kitti_alignment, device=mesh.device(0, 0))
-        self.bank = sharding.replicate_banks(mesh, config, n_streams=1)
-        if self.frame_sharded:
-            self._sfuse_wp = \
-                frame_sharding.sharded_fuse_frame_framestage_windowed_packed(
-                    config, mesh)
-        else:
-            self._sfuse_wp = sharding.sharded_fuse_frame_windowed_packed(
-                config, mesh)
-        self._scompact = sharding.sharded_compact(config, mesh)
-        self._swarp = sharding.sharded_warp_by_pose(config, mesh)
 
-    # the mesh programs stay eager: no captured graph
+    def _empty_bank(self):
+        from ..parallel import sharding
+        return sharding.replicate_banks(self.mesh, self.config, n_streams=1)
+
     def _build_graphs(self) -> None:
-        pass
+        """The mesh programs against the current banks, for the current
+        max_keyframes: the depth-fed step (replicated or column-sharded
+        frame stage), compaction and the pose warp (the JAX driver's jits
+        of `sharded_fuse_frame_windowed_packed` or
+        `sharded_fuse_frame_framestage_windowed_packed`, `sharded_compact`
+        and `sharded_warp_by_pose`), and the stereo step once enabled."""
+        from ..parallel import frame_sharding, sharding
+        cfg, mesh, banks, pool = (self.config, self.mesh, self.bank,
+                                  self._bank_pool)
+        step = (frame_sharding.graphed_fuse_frame_framestage_windowed_packed
+                if self.frame_sharded
+                else sharding.graphed_fuse_frame_windowed_packed)
+        self._fuse_graph = step(cfg, mesh, banks, self._graph_pool)
+        self._compact_graph = sharding.graphed_compact(cfg, mesh, banks, pool)
+        self._pose_warp_graph = sharding.graphed_warp_by_pose(cfg, mesh,
+                                                              banks, pool)
+        self._stereo_graph = None
+        if self._stereo_cfg is not None:
+            self._build_stereo_graph()
 
     def _build_stereo_graph(self) -> None:
-        pass
-
-    def _payload(self, buf: np.ndarray, frame_bytes: int):
-        from ..parallel.multistream import unpack_payload
-        return unpack_payload(self._upload(buf)[None], frame_bytes)
-
-    def _fuse_packed(self, buf: np.ndarray) -> None:
-        with self.timer.stage("dispatch"):
-            frames, poses, refs, _, masks = self._payload(
-                buf, 3 * self.config.height * self.config.width)
-            _, stats = self._sfuse_wp(self.bank, frames, poses, refs, masks)
-        self._fused(stats)
-
-    def _fuse_stereo_packed(self, buf: np.ndarray) -> None:
+        """`sharded_fuse_frame_stereo_windowed_packed` as a graph, built
+        once per `enable_stereo` (and with the others)."""
         from ..parallel import sharding
-        with self.timer.stage("dispatch"):
-            frames, poses, refs, bfs, masks = self._payload(
-                buf, 2 * self.config.height * self.config.width)
-            step = sharding.sharded_fuse_frame_stereo_windowed_packed(
+        self._stereo_graph = \
+            sharding.graphed_fuse_frame_stereo_windowed_packed(
                 self.config, self._stereo_cfg, self._stereo_filter,
-                self.mesh)
-            _, stats = step(self.bank, frames, poses, refs, bfs, masks)
-        self._fused(stats)
-
-    def _do_compact(self) -> None:
-        self._scompact(self.bank)
-        self.compactions += 1
+                self.mesh, self.bank, self._graph_pool)
 
     def _bank_count(self) -> int:
         return int(self.bank.counts().sum())
 
     def _bank_capacity(self) -> int:
         return self.n_shards * self.bank.rows_per_shard
-
-    def _apply_pose_warp(self, wstack: np.ndarray,
-                         mstack: np.ndarray) -> None:
-        self._swarp(self.bank, self._to_device(wstack[None]),
-                    self._to_device(mstack[None]),
-                    self._to_device(self._window_np[None]),
-                    self._to_device(np.full(1, self._first_local, np.int64)))
 
     def _bank_host(self) -> dict:
         from .sharded_driver import gather_sharded_bank

@@ -65,8 +65,7 @@ class SurfelMapping:
         self.device = torch.device(device)
         self.graph = PoseGraph()
         self.pool = InactivePool()
-        self.bank: SurfelBank = SurfelBank.empty(config.surfel_capacity,
-                                                 self.device)
+        self.bank = self._empty_bank()
         self.local_indices: Set[int] = set()
         self.timer = StageTimer()
 
@@ -101,6 +100,23 @@ class SurfelMapping:
         self._extract_graph = self._warp_graph = None
         self._build_graphs()
 
+    def _empty_bank(self) -> SurfelBank:
+        """The empty bank the driver starts from (the sharded drivers: a
+        mesh's `ShardedBanks`)."""
+        return SurfelBank.empty(self.config.surfel_capacity, self.device)
+
+    def _compact_upload(self) -> bool:
+        """Whether depth-fed frames travel as `pack_frame` bytes (u8 +
+        f16) or as the padded f32 planes."""
+        return self.config.compact_upload
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the driver's programs replay captured CUDA graphs: on a
+        card, except over a mesh that spans several cards, which keeps its
+        eager mesh programs (`parallel.sharding.graphed_mesh`)."""
+        return self._fuse_graph.graphed
+
     def _build_graphs(self) -> None:
         """(Re)build the captured programs against the current bank, the
         counterparts of the JAX driver's jits (densesurfelmapping_tpu/
@@ -108,10 +124,10 @@ class SurfelMapping:
         configured upload, compaction, the migration append and extract,
         and the active warp, each captured at its first use.  Called again
         after a checkpoint load (a graph holds the replaced bank's
-        addresses); the subclasses build their own programs or none."""
+        addresses); the subclasses build their own programs."""
         cfg, bank, pool = self.config, self.bank, self._bank_pool
-        graphed = (fuse_step.graphed_fuse_frame_compact if cfg.compact_upload
-                   else fuse_step.graphed_fuse_frame)
+        graphed = (fuse_step.graphed_fuse_frame_compact
+                   if self._compact_upload() else fuse_step.graphed_fuse_frame)
         self._fuse_graph = graphed(cfg, bank, self._graph_pool)
         self._compact_graph = fuse_step.graphed_compact(bank, pool)
         self._append_graph = fuse_step.graphed_append(cfg, bank, pool)
@@ -307,7 +323,7 @@ class SurfelMapping:
             buf = pack_stereo_with_aux(self.config, depth.buf, aux)
         else:
             step = self._fuse_graph
-            if self.config.compact_upload:
+            if self._compact_upload():
                 buf = pack_frame_with_aux(self.config, image, depth, aux)
             else:
                 planes = pad_frame(self.config,

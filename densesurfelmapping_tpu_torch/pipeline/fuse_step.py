@@ -16,6 +16,7 @@ extract, the loop warps), they replay it captured the same way
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Tuple
 
@@ -329,36 +330,76 @@ def fuse_frames_looped(config: SurfelMapConfig, n_loops: int,
 
 # graphs captured in this process (`capture`), read beside the kernels'
 # LAUNCHES: a replayed graph launches its kernels without calling their
-# wrappers.  "steps": the fuse steps and laps (StepGraph, LapGraph), whose
-# warm-up runs the kernels once; "programs": the other bank programs
-# (BankGraph), which run none of them
+# wrappers.  "steps": the fuse steps and laps (StepGraph, LapGraph, the
+# mesh steps), whose warm-up runs the kernels once; "programs": the other
+# programs (BankGraph: the bank programs, the sharded SGM), which run none
+# of them
 CAPTURES = {"steps": 0, "programs": 0}
 
 
-def capture(bank: SurfelBank, body: Callable[[SurfelBank], object],
-            pool=None, reset: Callable[[], None] | None = None,
-            kind: str = "steps"):
+def _banks_of(target) -> list:
+    """The SurfelBanks of a graph's target: one bank, or every (stream,
+    shard) bank of a `parallel.sharding.ShardedBanks`."""
+    if isinstance(target, SurfelBank):
+        return [target]
+    return [b for row in target.shards for b in row]
+
+
+def home_device(target) -> torch.device:
+    """Where a graph over `target` keeps its static inputs: the bank's
+    device, or a mesh's home cell (stream 0's first shard)."""
+    return _banks_of(target)[0].device
+
+
+def _clone(bank: SurfelBank) -> SurfelBank:
+    return SurfelBank(**{f: getattr(bank, f).clone()
+                         for f in bank.__dataclass_fields__})
+
+
+def _scratch(target):
+    """A clone of the target (a bank or a mesh's banks) to warm up on."""
+    if isinstance(target, SurfelBank):
+        return _clone(target)
+    return dataclasses.replace(target, shards=[[_clone(b) for b in row]
+                                               for row in target.shards])
+
+
+def capture(bank, body: Callable[[object], object], pool=None,
+            reset: Callable[[], None] | None = None, kind: str = "steps",
+            device: torch.device | None = None):
     """Capture body(bank) into a `torch.cuda.CUDAGraph`: returns (graph,
     what the captured call returned, its tensors now the graph's static
-    outputs).
+    outputs).  `bank` is a SurfelBank, a mesh's `ShardedBanks` whose
+    shards all live on one card, or None for a program without a bank
+    (then `device` names the card).
 
     body(scratch) runs once first, on a side stream, against a clone of
-    the bank: every lazily built object (geometry planes, library handles,
-    the kernel libraries) is built there, outside the capture, where an
-    upload from pageable memory or a synchronisation is allowed.  The clone
-    is freed before the capture (`torch.cuda.graph` empties the cache on
-    entry); `reset` undoes the warm-up's other side effects.  The capture
-    runs in "thread_local" mode: the drivers' worker threads (the pack
-    worker, the fleet's pipelined rounds, pinned allocations on the main
-    thread) may call CUDA while it runs, and only this thread is barred
-    from calls that a capture forbids.  `pool` (`graph_pool`) shares one
-    memory pool between the graphs of a driver; `kind` is the CAPTURES
-    entry the capture counts in."""
-    dev = bank.device
+    the bank(s): every lazily built object (geometry planes, library
+    handles, the kernel libraries) is built there, outside the capture,
+    where an upload from pageable memory or a synchronisation is allowed.
+    The clone is freed before the capture (`torch.cuda.graph` empties the
+    cache on entry); `reset` undoes the warm-up's other side effects.  The
+    capture runs in "thread_local" mode: the drivers' worker threads (the
+    pack worker, the fleet's pipelined rounds, pinned allocations on the
+    main thread) may call CUDA while it runs, and only this thread is
+    barred from calls that a capture forbids.  `pool` (`graph_pool`)
+    shares one memory pool between the graphs of a driver; `kind` is the
+    CAPTURES entry the capture counts in.
+
+    One graph captures one card's stream: a mesh whose shards span several
+    cards would need one graph per card, joined by events, which is not
+    built, so such a target raises here (its drivers keep the eager mesh
+    programs, `BankGraph(graphed=False)`)."""
+    if bank is not None:
+        devs = {b.device for b in _banks_of(bank)}
+        if len(devs) != 1:
+            raise ValueError(f"one graph per device: the target spans "
+                             f"{sorted(map(str, devs))}")
+        device = home_device(bank)
+    dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
-    scratch = SurfelBank(**{f: getattr(bank, f).clone()
-                            for f in bank.__dataclass_fields__})
+    scratch = None if bank is None else _scratch(bank)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
@@ -434,36 +475,49 @@ class BankGraph:
     jit dispatched on the bank (the fuse steps below, `StepGraph`; the bank
     programs of the drivers: `jitted_compact`, `_jitted_append`,
     `migration.extract_by_pose`, `warp_active`, `warp_bank_by_pose` and the
-    fleet's `_batched_warp` / `_batched_compact`).
+    fleet's `_batched_warp` / `_batched_compact`; over a mesh's
+    `ShardedBanks`, the `jax.jit(jax.shard_map(...))` programs of
+    `parallel/sharding.py` and `parallel/frame_sharding.py`).
 
     `fn(bank, *inputs)` is the eager program.  The object owns one static
-    input per argument (`specs`: (shape, dtype) each) on the bank's device,
-    the bank it was captured against (written in place, so its tensors keep
-    their addresses), and what the captured call returned: static outputs,
-    which the next replay overwrites, and so may the replay of a graph
-    captured earlier into the same pool (its freed intermediates are the
-    later graph's to reuse): read them before either.  `keep` holds
-    whatever else the graph reads and must outlive it.
+    input per argument (`specs`: (shape, dtype) each) on the bank's device
+    (a mesh's home cell, `home_device`; `device` for a program without a
+    bank, bank None: the sharded SGM), the bank(s) it was captured
+    against (written in place, so their tensors keep their addresses), and
+    what the captured call returned: static outputs, which the next replay
+    overwrites, and so may the replay of a graph captured earlier into the
+    same pool (its freed intermediates are the later graph's to reuse):
+    read them before either.  `keep` holds whatever else the graph reads
+    and must outlive it.
 
     `load(*args)` copies the arguments (host arrays or tensors) into the
     static inputs without blocking the host; `replay()` captures `fn` at
     its first call (`capture`: a warm-up on a scratch clone of the bank,
     then the capture, which synchronises like a jit's first call) and
     enqueues one replay; `__call__(*args)` does both and returns the
-    outputs.  On a CPU bank the same object runs `fn` eagerly through the
-    same static inputs; on a CUDA bank it captures or raises."""
+    outputs.  `graphed` (default: the bank is on a card) is decided when
+    the object is built: when False the same object runs `fn` eagerly
+    through the same static inputs, as it does on a CPU bank and, by the
+    mesh factories' choice, over a mesh that spans several cards
+    (`parallel.sharding.graphed_mesh`).  A graphed object captures or
+    raises."""
 
     kind = "programs"   # its CAPTURES entry
 
-    def __init__(self, fn: Callable, bank: SurfelBank, specs=(), pool=None,
-                 keep=()):
+    def __init__(self, fn: Callable, bank, specs=(), pool=None, keep=(),
+                 graphed: bool | None = None,
+                 device: torch.device | None = None):
         self.fn = fn
         self.bank = bank
+        self.device = (home_device(bank) if bank is not None
+                       else torch.device(device))
         self.inputs = tuple(torch.zeros(shape, dtype=dtype,
-                                        device=bank.device)
+                                        device=self.device)
                             for shape, dtype in specs)
         self.pool = pool
         self.keep = keep
+        self.graphed = (self.device.type == "cuda" if graphed is None
+                        else graphed)
         self.graph = None
         self.out = None
         self.replays = 0
@@ -474,13 +528,13 @@ class BankGraph:
             dst.copy_(torch.as_tensor(src), non_blocking=True)
 
     def replay(self):
-        if self.bank.device.type != "cuda":
+        if not self.graphed:
             return self.fn(self.bank, *self.inputs)
         if self.graph is None:
             t0 = time.perf_counter()
             self.graph, self.out = capture(
                 self.bank, lambda b: self.fn(b, *self.inputs), self.pool,
-                kind=self.kind)
+                kind=self.kind, device=self.device)
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
         self.graph.replay()
         self.replays += 1
@@ -511,8 +565,9 @@ class StepGraph(BankGraph):
     kind = "steps"
 
     def __init__(self, step: Callable[[SurfelBank, torch.Tensor], dict],
-                 bank: SurfelBank, shape, pool=None, keep=()):
-        super().__init__(step, bank, ((shape, torch.uint8),), pool, keep)
+                 bank, shape, pool=None, keep=(), graphed=None):
+        super().__init__(step, bank, ((shape, torch.uint8),), pool, keep,
+                         graphed)
 
     @property
     def buf(self) -> torch.Tensor:

@@ -5,7 +5,8 @@ host orchestration as `SurfelMapping` (pose graph, sync buffers, inactive
 pool, export, checkpoint), with the active bank split in row slabs over the
 mesh's "surfel" axis: the fuse step, compaction, migration extract,
 re-activation appends and loop-closure warps run on every shard
-(`parallel/sharding.py`).  One host process drives the whole mesh.
+(`parallel/sharding.py`), each replayed from a captured graph on one card.
+One host process drives the whole mesh.
 
 What it is for: maps whose active window outgrows one card's memory
 (capacity scales with the mesh); on one card the shards are virtual and
@@ -17,9 +18,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import SurfelMapConfig
-from ..core.state import FIELDS, FrameInput, bank_from_numpy, pad_frame
+from ..core.state import FIELDS, bank_from_numpy
 from ..parallel import sharding
-from .driver import SurfelMapping, _StereoPair
+from .driver import SurfelMapping
 
 
 def scatter_rows_to_sharded(config: SurfelMapConfig, mesh,
@@ -52,7 +53,17 @@ def gather_sharded_bank(banks: sharding.ShardedBanks, n_shards: int,
 
 class ShardedSurfelMapping(SurfelMapping):
     """Single-session mapping with the bank sharded over the mesh's
-    "surfel" axis (the mesh must have one data row)."""
+    "surfel" axis (the mesh must have one data row).
+
+    Its programs are the mesh programs of `parallel/sharding.py` as
+    graphs (`sharding.graphed_*`, where the JAX driver dispatches its
+    `jax.jit(jax.shard_map(...))` programs): the fuse step of the padded
+    upload (the planes and the 72-byte aux head in one pinned copy per
+    frame; there is no compact mesh step) and the stereo step in one
+    memory pool, compaction, the migration extract and append and the
+    active warp in another, each captured at its first use and rebuilt
+    where the dense driver rebuilds its graphs.  On a mesh over several
+    cards they run as the eager mesh programs (`graphed` False)."""
 
     def __init__(self, config: SurfelMapConfig, mesh,
                  kitti_alignment: bool = False):
@@ -60,46 +71,44 @@ class ShardedSurfelMapping(SurfelMapping):
             raise ValueError("one session per data row")
         self.mesh = mesh
         self.n_shards = mesh.shape["surfel"]
-        super().__init__(config, kitti_alignment, device=mesh.device(0, 0))
-        self.bank = sharding.replicate_banks(mesh, config, n_streams=1)
-        self._sfuse = sharding.sharded_fuse_frame(config, mesh)
-        self._scompact = sharding.sharded_compact(config, mesh)
         # ceil: a full migration_buffer slab distributed round-robin puts
         # up to ceil(buf / n_shards) rows on shard 0
         self._per_chunk = max(-(-config.migration_buffer // self.n_shards),
                               1)
-        self._sextract = sharding.sharded_extract_by_pose(
-            config, mesh, self._per_chunk)
-        self._sappend = sharding.sharded_append(config, mesh,
-                                                self._per_chunk)
-        self._swarp = sharding.sharded_warp_active(config, mesh)
+        super().__init__(config, kitti_alignment, device=mesh.device(0, 0))
 
-    # the mesh programs stay eager: no captured graph
+    def _empty_bank(self) -> sharding.ShardedBanks:
+        return sharding.replicate_banks(self.mesh, self.config, n_streams=1)
+
+    def _compact_upload(self) -> bool:
+        return False
+
     def _build_graphs(self) -> None:
-        pass
+        """The mesh programs against the current banks (the JAX driver's
+        jits of `sharded_fuse_frame`, `sharded_compact`,
+        `sharded_extract_by_pose`, `sharded_append` and
+        `sharded_warp_active`)."""
+        cfg, mesh, banks, pool = (self.config, self.mesh, self.bank,
+                                  self._bank_pool)
+        self._fuse_graph = sharding.graphed_fuse_frame(cfg, mesh, banks,
+                                                       self._graph_pool)
+        self._compact_graph = sharding.graphed_compact(cfg, mesh, banks, pool)
+        self._extract_graph = sharding.graphed_extract_by_pose(
+            cfg, mesh, banks, self._per_chunk, pool)
+        self._append_graph = sharding.graphed_append(cfg, mesh, banks,
+                                                     self._per_chunk, pool)
+        self._warp_graph = sharding.graphed_warp_active(cfg, mesh, banks,
+                                                        pool)
+        self._stereo_graph = None
+        if self._stereo_cfg is not None:
+            self._build_stereo_graph()
 
     def _build_stereo_graph(self) -> None:
-        pass
-
-    def _fuse_frame(self, image, depth, pose, ref_index: int) -> None:
-        pose_dev = self._to_device(np.asarray(pose, np.float32)[None])
-        refs = self._to_device(np.full(1, ref_index, np.int32))
-        if isinstance(depth, _StereoPair):
-            step = sharding.sharded_fuse_frame_stereo(
-                self.config, self._stereo_cfg, self._stereo_filter,
-                self.mesh)
-            _, stats = step(self.bank, self._to_device(depth.buf[None]),
-                            pose_dev, refs, self._to_device(
-                                np.full(1, self._stereo_bf, np.float32)))
-        else:
-            pi, pd = pad_frame(self.config, np.asarray(image, np.float32),
-                               np.asarray(depth, np.float32))
-            frames = FrameInput(image=self._to_device(pi[None]),
-                                depth=self._to_device(pd[None]),
-                                pose=pose_dev, frame_index=refs)
-            _, stats = self._sfuse(self.bank,
-                                   sharding.shard_frames(self.mesh, frames))
-        self._fuse_epilogue(stats)
+        """`sharded_fuse_frame_stereo` as a graph, built once per
+        `enable_stereo` (and with the others)."""
+        self._stereo_graph = sharding.graphed_fuse_frame_stereo(
+            self.config, self._stereo_cfg, self._stereo_filter, self.mesh,
+            self.bank, self._graph_pool)
 
     # ------------------------------------------------------------------
     # device-bank seams
@@ -112,12 +121,10 @@ class ShardedSurfelMapping(SurfelMapping):
         # ownership); the callers' headroom margins already overshoot
         return self.n_shards * self.bank.rows_per_shard
 
-    def _do_compact(self) -> None:
-        self._scompact(self.bank)
-        self.compactions += 1
-
     def _extract_chunk(self, ids: np.ndarray):
-        _, bufs, ns = self._sextract(self.bank, self._to_device(ids))
+        """One removed-pose extraction pass over every shard; the graph's
+        static outputs are copied to the host before the next replay."""
+        bufs, ns = self._extract_graph(ids)
         ns = ns[0].cpu().numpy()                     # (n_shards,)
         n = int(ns.sum())
         if n == 0:
@@ -135,7 +142,9 @@ class ShardedSurfelMapping(SurfelMapping):
         return host, min(n, self.config.migration_buffer - 1)
 
     def _append_hostslab(self, padded: dict, n: int) -> None:
-        fields = {}
+        """Distribute the first n rows of the slab round-robin over the
+        shards and append each shard's part at its tail."""
+        fields = []
         ns = np.zeros((1, self.n_shards), np.int32)
         owner = np.arange(n) % self.n_shards
         for k in FIELDS:
@@ -146,13 +155,9 @@ class ShardedSurfelMapping(SurfelMapping):
                 part = rows[owner == s]
                 out[0, s, :len(part)] = part
                 ns[0, s] = len(part)
-            fields[k] = self._to_device(out.reshape(
+            fields.append(out.reshape(
                 (1, self.n_shards * self._per_chunk) + rows.shape[1:]))
-        self._sappend(self.bank, fields, self._to_device(ns))
-
-    def _apply_active_warp(self, warp: np.ndarray) -> None:
-        self._swarp(self.bank,
-                    self._to_device(np.asarray(warp, np.float32)[None]))
+        self._append_graph(*fields, ns)
 
     def _bank_host(self) -> dict:
         return gather_sharded_bank(self.bank, self.n_shards)

@@ -14,8 +14,8 @@ programs; a host-pool drive with migrations, a re-activation, a loop warp
 and compaction stays within 1e-5 m of the JAX SurfelMapping (bank and pool,
 compact and padded uploads; a stereo drive within 1e-4 m), also when
 resumed from a JAX checkpoint; the driver rebuilds its graphs on
-enable_stereo and on a checkpoint load, and ShardedSurfelMapping builds
-none."""
+enable_stereo and on a checkpoint load, and ShardedSurfelMapping builds its
+mesh programs as graphs too."""
 
 import dataclasses
 
@@ -437,18 +437,35 @@ def test_device_driver_rebuilds_compaction_and_warp(tmp_path):
 
 
 def test_sharded_host_pool_builds_no_graph(monkeypatch):
-    """ShardedSurfelMapping keeps its eager mesh programs: no StepGraph or
-    BankGraph is built by the constructor, the chain, the loop, the
-    correction or enable_stereo."""
-    def refuse(*a, **kw):
-        raise AssertionError("a graph was built")
+    """ShardedSurfelMapping builds its mesh programs as graphs over its
+    ShardedBanks (the name is the one this test had while they ran
+    eagerly): the fuse step and the four bank programs at construction,
+    the stereo step at enable_stereo, each against the driver's banks; the
+    chain, the loop and the correction run through them."""
+    made = []
 
-    monkeypatch.setattr(tfs, "StepGraph", refuse)
-    monkeypatch.setattr(tfs, "BankGraph", refuse)
-    drv = loop(chain(ShardedSurfelMapping(port(CFG),
-                                          tsh.make_mesh(2, devices="cpu"))))
-    drv.enable_stereo(bf=CAM.fx * 0.5)
+    class Recorded(tfs.BankGraph):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    class RecordedStep(tfs.StepGraph, Recorded):
+        pass
+
+    monkeypatch.setattr(tfs, "StepGraph", RecordedStep)
+    monkeypatch.setattr(tfs, "BankGraph", Recorded)
+    drv = ShardedSurfelMapping(port(CFG), tsh.make_mesh(2, devices="cpu"))
+    names = ("_fuse_graph", "_compact_graph", "_extract_graph",
+             "_append_graph", "_warp_graph")
+    assert made == [getattr(drv, n) for n in names]
+    assert drv._stereo_graph is None
+    assert drv._fuse_graph.buf.shape == (1, 8 * 56 * 128 + 72)
+    drv = loop(chain(drv))
     assert drv.frames_fused == N_CHAIN + 2 and len(drv.pool) > 0
-    assert all(getattr(drv, n) is None for n in (
-        "_fuse_graph", "_stereo_graph", "_compact_graph", "_append_graph",
-        "_extract_graph", "_warp_graph"))
+    assert len(made) == len(names)
+    drv.enable_stereo(bf=CAM.fx * 0.5)
+    assert made[-1] is drv._stereo_graph and len(made) == len(names) + 1
+    assert drv._stereo_graph.buf.shape == (1, 2 * 56 * 120 + 72)
+    assert all(getattr(drv, n).bank is drv.bank
+               for n in names + ("_stereo_graph",))
+    assert not drv.graphed

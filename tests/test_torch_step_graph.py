@@ -11,7 +11,8 @@ growth, the fleet's session changes) and where the bank is replaced (a
 checkpoint load), and their maps stay those of the JAX driver (within
 1e-5 m, the bound of the fleet's and the CLI's drives against JAX), of an
 uninterrupted drive and of solo drivers (bitwise); the sharded driver
-builds none."""
+builds its mesh steps as StepGraphs too (tests/test_torch_sharded_graph.py
+holds them to the eager mesh programs)."""
 
 import dataclasses
 
@@ -221,17 +222,20 @@ def test_fleet_session_changes_rebuild_the_round(built):
                                           err_msg=f"session {k} {f}")
 
 
-def test_sharded_driver_builds_no_step_graph(monkeypatch):
-    """(e) ShardedDeviceResidentMapping keeps its eager mesh step: no
-    StepGraph is ever built, by the constructor or the feed."""
-    def refuse(*a, **kw):
-        raise AssertionError("a StepGraph was built")
-
-    monkeypatch.setattr(tfs, "StepGraph", refuse)
+def test_sharded_driver_builds_no_step_graph(built):
+    """(e) ShardedDeviceResidentMapping builds its mesh steps as StepGraphs
+    over its ShardedBanks (the name is the one this test had while the
+    sharded steps ran eagerly): the depth-fed step at construction, the
+    stereo step at enable_stereo, each payload (1, n) bytes; the feed runs
+    through the depth-fed one."""
     drv = tdd.ShardedDeviceResidentMapping(
         port(CFG), tsh.make_mesh(2, devices="cpu"))
+    assert built == [drv._fuse_graph] and drv._fuse_graph.bank is drv.bank
+    assert drv._fuse_graph.buf.shape == (1, 3 * 56 * 120 + 72 + 8)
     for i in range(3):
         feed(drv, i)
     drv.enable_stereo(bf=CAM.fx * 0.54)
-    assert drv.frames_fused == 3
-    assert drv._fuse_graph is None and drv._stereo_graph is None
+    assert drv.frames_fused == 3 and not drv.graphed
+    assert built == [drv._fuse_graph, drv._stereo_graph]
+    assert drv._stereo_graph.buf.shape == (1, 2 * 56 * 120 + 72 + 8)
+    assert drv._stereo_graph.bank is drv.bank
