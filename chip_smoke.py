@@ -90,7 +90,20 @@ Phases (each prints a line; any failure raises and exits non-zero):
                pool's too), graphed and eager frames/s (median of 3);
                sharded_sgm_disparity's graph on 2 shards (a 61 x 97 crop
                and KITTI size): its replays == its eager call == the
-               replicated plain disparity
+               replicated plain disparity; each virtual shard's passes run
+               on a stream of its own (`sharding.cells`), forked and joined
+               inside the graphs
+ 13b. multicard - on a machine with 2 or more cards (else one line saying
+               so): the sharded drivers on make_mesh(n) and make_mesh(2 n)
+               over every card, each mesh program one CUDA graph over the
+               cards, torch.equal on every shard to the eager mesh
+               programs on the same cards and to the same mesh on virtual
+               shards of card 0, before and after a loop warp, == the
+               dense drive (1e-4 m); per-card launches by the profiler's
+               records, B5 cooperative on every card, the sharded SGM,
+               make_mesh(n, data=2), entry.dryrun_multichip(n) and (2 n);
+               graphed, eager and one-card virtual frames/s, busy ms, pool
+               and peak MiB per card, the peer links
  14. cli     - the port's CLI in this process (cli.main, --device cuda) on
                KITTI-size frames: the native library is required; the
                host pack timed native vs numpy; synthetic --loop --eval
@@ -983,15 +996,20 @@ KERNEL_RECORDS = {
     "sgm_census_x": ("census_x_kernel",)}
 
 
-def device_record_names(prof) -> list:
-    """The names of a profiler window's device records (kernels, copies
-    and sets, not the scopes' device spans), from the raw records: parsing
-    them into FunctionEvents (`prof.events()`) takes seconds of host time
-    per 100k records, and a drive leaves 100k-200k."""
+def raw_device_records(prof) -> list:
+    """A profiler window's device records (kernels, copies and sets, not
+    the scopes' device spans), raw: parsing them into FunctionEvents
+    (`prof.events()`) takes seconds of host time per 100k records, and a
+    drive leaves 100k-200k."""
     from torch.autograd import DeviceType
-    return [e.name() for e in prof.profiler.kineto_results.events()
+    return [e for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
             and not e.is_user_annotation()]
+
+
+def device_record_names(prof) -> list:
+    """(card, name) of each of a profiler window's device records."""
+    return [(e.device_index(), e.name()) for e in raw_device_records(prof)]
 
 
 # A counting window's edges.  The profiler keeps only the device records
@@ -1008,7 +1026,7 @@ EDGE_PAD_S = 0.75
 def device_records():
     """A profiler window over the body, which starts and ends EDGE_PAD_S
     from the window's edges; yields a list that holds, after the block,
-    the names of the body's device records (`device_record_names`)."""
+    (card, name) of the body's device records (`device_record_names`)."""
     from torch.profiler import ProfilerActivity, profile
     names: list = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1024,19 +1042,27 @@ def executed(fn):
     and the count of captured graphs set to 0 just before and read just
     after.  Returns (fn's result, {"calls": each wrapper's launches,
     "runs": each kernel's device runs by the profiler's kernel records,
-    "captures": fuse steps captured, "programs": other bank programs
-    captured (compaction, migration, warps: no kernel of the six runs in
-    them)}).  A captured step calls each wrapper twice per capture (the
-    warm-up and the capture itself) and never again: its replays launch
-    the kernels from the graph, and only the profiler sees them."""
+    "card_runs": the same for each card, "captures": fuse steps captured,
+    "programs": other bank programs captured (compaction, migration,
+    warps: no kernel of the six runs in them)}).  A captured step calls
+    each wrapper twice per capture (the warm-up and the capture itself)
+    and never again: its replays launch the kernels from the graph, and
+    only the profiler sees them."""
     from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
-    with device_records() as names:
+    with device_records() as records:
         for kind in FS.CAPTURES:
             FS.CAPTURES[kind] = 0
         res, calls = counted(fn)
-    runs = {k: sum(any(p in n for p in parts) for n in names)
-            for k, parts in KERNEL_RECORDS.items()}
-    return res, dict(calls=calls, runs=runs, captures=FS.CAPTURES["steps"],
+    cards = sorted({c for c, _ in records})
+
+    def runs_on(on):
+        return {k: sum(any(p in n for p in parts)
+                       for c, n in records if on(c))
+                for k, parts in KERNEL_RECORDS.items()}
+    return res, dict(calls=calls, runs=runs_on(lambda c: True),
+                     card_runs={card: runs_on(lambda c: c == card)
+                                for card in cards},
+                     captures=FS.CAPTURES["steps"],
                      programs=FS.CAPTURES["programs"])
 
 
@@ -1972,9 +1998,7 @@ def phase_multi_stereo(device, pairs, smi: str) -> dict:
             cfg, pairs, device, B, R, sync_checked=True))
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        pool = tuple(g._graph_pool.id)
-        held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        held = pool_mib(g._graph_pool) * 2**20
         for k, v in ex["runs"].items():
             total[k] = total.get(k, 0) + v
         require(ex["captures"] == 1, f"stereo fleet B={B}: "
@@ -2131,12 +2155,19 @@ def graph_kernel_nodes(fn) -> list:
     """fn() (run once first, outside the capture) captured into a CUDA
     graph kept for inspection: (grid x, block x, cooperative attribute) of
     each kernel node, read through the driver API."""
-    import ctypes
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return [node[:3] for node in kernel_nodes(graph)]
+
+
+def kernel_nodes(graph) -> list:
+    """(grid x, block x, cooperative attribute, CUDA context) of each
+    kernel node of a graph kept for inspection (keep_graph=True), read
+    through the driver API."""
+    import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
 
     def ok(err, what):
@@ -2154,16 +2185,33 @@ def graph_kernel_nodes(fn) -> list:
            "cuGraphNodeGetType")
         if kind.value != 0:                      # CU_GRAPH_NODE_TYPE_KERNEL
             continue
-        # CUDA_KERNEL_NODE_PARAMS_v2: func, gridDim x y z, blockDim x y z
+        # CUDA_KERNEL_NODE_PARAMS_v2: func, gridDim x y z, blockDim x y z,
+        # shared bytes, params, extra, kern, then the context at byte 64
         params = (ctypes.c_ubyte * 128)()
         ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
            "cuGraphKernelNodeGetParams_v2")
         value = (ctypes.c_ubyte * 64)()          # CUlaunchAttributeValue
         ok(cu.cuGraphKernelNodeGetAttribute(ctypes.c_void_p(node), 2, value),
            "cuGraphKernelNodeGetAttribute(COOPERATIVE)")
-        word = [int.from_bytes(bytes(b[i:i + 4]), "little")
-                for b, i in ((params, 8), (params, 20), (value, 0))]
+        word = [int.from_bytes(bytes(b[i:i + n]), "little")
+                for b, i, n in ((params, 8, 4), (params, 20, 4),
+                                (value, 0, 4), (params, 64, 8))]
         out.append(tuple(word))
+    return out
+
+
+def card_contexts(cards) -> dict:
+    """{primary CUDA context: card index} of the given cards (PyTorch runs
+    each card on its primary context)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for k in cards:
+        dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+        require(cu.cuDeviceGet(ctypes.byref(dev), k) == 0
+                and cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev)
+                == 0, f"no primary context of card {k}")
+        out[ctx.value] = k
     return out
 
 
@@ -2228,11 +2276,8 @@ def first_step_memory(drv, step, flush) -> dict:
     step(0)
     flush()
     torch.cuda.synchronize()
-    pool = tuple(drv._graph_pool.id)
-    held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
     return dict(peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
-                pool_mib=held / 2**20)
+                pool_mib=pool_mib(drv._graph_pool))
 
 
 @contextlib.contextmanager
@@ -2724,10 +2769,10 @@ SHARDED_TOL_M = 1e-4    # the JAX package's sharded == dense tolerance
 SLIC = ("slic_assign", "slic_centroid", "slic_huber")
 
 
-def slic_records(names) -> dict:
-    """Kernel records of each SLIC kernel among a window's device record
-    names (`device_records`)."""
-    return {k: sum(f"{k}_kernel" in n for n in names) for k in SLIC}
+def slic_records(records) -> dict:
+    """Kernel records of each SLIC kernel among a window's device records
+    ((card, name) each, `device_records`)."""
+    return {k: sum(f"{k}_kernel" in n for _, n in records) for k in SLIC}
 
 
 def phase_batch(device, frames) -> dict:
@@ -2871,11 +2916,21 @@ def same_map(a: dict, b: dict, what: str) -> float:
     return err
 
 
+def pool_mib_by_card(pool) -> dict:
+    """The device memory each card's `torch.cuda.MemPool` of a driver's
+    pools (`fuse_step.graph_pool`: {card: MemPool}) holds, MiB."""
+    card = {tuple(p.id): str(d) for d, p in pool.items()}
+    held = dict.fromkeys(card.values(), 0.0)
+    for seg in torch.cuda.memory_snapshot():
+        d = card.get(tuple(seg.get("segment_pool_id", ())))
+        if d is not None:
+            held[d] += seg["total_size"] / 2**20
+    return held
+
+
 def pool_mib(pool) -> float:
-    """The device memory a `torch.cuda.MemPool` holds (its segments), MiB."""
-    held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool.id))
-    return held / 2**20
+    """The device memory a driver's pools hold on all their cards, MiB."""
+    return sum(pool_mib_by_card(pool).values())
 
 
 def pools_line(drv) -> str:
@@ -3005,10 +3060,13 @@ def sharded_eager_classes():
 
 
 def same_sharded(a, b) -> bool:
-    """torch.equal on every shard's bank, field by field and count."""
-    return a.n_shards == b.n_shards and all(
-        same_banks(x, y) for ra, rb in zip(a.shards, b.shards)
-        for x, y in zip(ra, rb))
+    """torch.equal on every shard's bank, field by field and count (b's
+    shard copied to a's card where the two meshes differ)."""
+    from densesurfelmapping_tpu_torch.core.state import FIELDS
+    return (a.n_streams, a.n_shards) == (b.n_streams, b.n_shards) and all(
+        torch.equal(getattr(x, k), getattr(y, k).to(x.device))
+        for ra, rb in zip(a.shards, b.shards) for x, y in zip(ra, rb)
+        for k in FIELDS + ("count",))
 
 
 def median_line(tag: str, runs: list, what: str) -> str:
@@ -3036,7 +3094,8 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.models import stereo as ST
     from densesurfelmapping_tpu_torch.parallel import sgm_sharding
-    from densesurfelmapping_tpu_torch.parallel.sharding import make_mesh
+    from densesurfelmapping_tpu_torch.parallel.sharding import (capture_plan,
+                                                                make_mesh)
     from densesurfelmapping_tpu_torch.pipeline.device_driver import (
         DeviceResidentMapping, ShardedDeviceResidentMapping)
     from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
@@ -3049,6 +3108,13 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     n_sh = mesh.shape["surfel"]
     label = f"{n_sh} virtual shards on one card ({smi})"
     say("sharded", f"mesh {mesh}: {label}")
+    plan = capture_plan(mesh)
+    say("sharded", "capture plan: " + "; ".join(
+        f"{d}: lane {c['lane']}, cells {c['cells']} on cell streams "
+        f"{c['streams']}" for d, c in plan["cards"].items())
+        + ": each shard's passes on a stream of its own, forked from the "
+        "card's lane and joined back (`sharding.cells`), in the graphs and "
+        "the eager mesh programs alike")
     slic = {k: cfg.sp_iters * n_sh for k in SLIC}
     no_sgm = dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0)
     total: dict = {}
@@ -3299,8 +3365,473 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     return total
 
 
+def sync_all() -> None:
+    """Wait for every card."""
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def busy_by_card(records) -> dict:
+    """{card: ms during which it ran any of the raw device records (the
+    union of their intervals)}."""
+    spans: dict = {}
+    for e in records:
+        spans.setdefault(e.device_index(), []).append(
+            (e.start_ns(), e.start_ns() + e.duration_ns()))
+    out = {}
+    for card, iv in sorted(spans.items()):
+        busy, end = 0, float("-inf")
+        for lo, hi in sorted(iv):
+            busy += max(0, hi - max(lo, end))
+            end = max(end, hi)
+        out[card] = busy / 1e6
+    return out
+
+
+def profiled_cards(step, n_warm: int, n: int) -> dict:
+    """step(i) for i < n_warm, then n more under the profiler: wall ms per
+    step and each card's device busy ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(n_warm):
+        step(i)
+    sync_all()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n):
+            step(i)
+        sync_all()
+        wall = time.perf_counter() - t0
+    busy = busy_by_card(raw_device_records(prof))
+    return dict(wall_ms=1e3 * wall / n,
+                busy_ms={c: v / n for c, v in busy.items()})
+
+
+def cards_line(p: dict, unit: str = "frame") -> str:
+    return (f"wall {p['wall_ms']:.2f} ms/{unit}, device busy ms/{unit} by "
+            f"card " + ", ".join(f"cuda:{c} {v:.2f}"
+                                 for c, v in p["busy_ms"].items()))
+
+
+def mesh_kernel_nodes(fn, devices) -> list:
+    """fn() (run once first) captured as a mesh program is, one capture
+    over the cards of `devices` (the home first) with a memory pool on
+    each (`fuse_step.capture`), the graph kept for inspection: (card,
+    grid x, block x, cooperative attribute) of each kernel node, the card
+    by the node's context."""
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    fn()
+    sync_all()
+    home = devices[0]
+    pools = FS.graph_pool(devices)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.device(home), torch.cuda.graph(
+            graph, pool=pools[home].id, stream=torch.cuda.Stream(home),
+            capture_error_mode="thread_local"), \
+            FS.capture_pools(pools, devices[1:]):
+        fn()
+    ctx = card_contexts([d.index for d in devices])
+    return [(ctx.get(c), grid, block, coop)
+            for grid, block, coop, c in kernel_nodes(graph)]
+
+
+def link_lines(n_cards: int) -> list:
+    """The peer-access matrix, `nvidia-smi topo -m` and `nvlink -s` (or
+    what they print instead), and the copy rate card 0 -> k and back
+    (256 MiB, host clock to a synchronize of both, median of 5)."""
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
+             for j in range(n_cards)] for i in range(n_cards)]
+    out = [f"peer access (torch.cuda.can_device_access_peer): {peer}"]
+    for args in (("topo", "-m"), ("nvlink", "-s")):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True, timeout=60)
+        text = (r.stdout.strip() or r.stderr.strip() or "(no output)")
+        out.append(f"nvidia-smi {' '.join(args)} (exit {r.returncode}): "
+                   + " | ".join(text.splitlines()[:12]))
+    rates = []
+    for k in range(1, n_cards):
+        for src, dst in ((0, k), (k, 0)):
+            a = torch.empty(256 << 20, dtype=torch.uint8, device=f"cuda:{src}")
+            b = torch.empty_like(a, device=f"cuda:{dst}")
+            b.copy_(a)
+            times = []
+            for _ in range(5):
+                sync_all()
+                t0 = time.perf_counter()
+                b.copy_(a)
+                torch.cuda.synchronize(src)
+                torch.cuda.synchronize(dst)
+                times.append(time.perf_counter() - t0)
+            rates.append(f"{src}->{dst} "
+                         f"{(256 << 20) / sorted(times)[2] / 1e9:.1f}")
+            del a, b
+    out.append("peer copy GB/s (256 MiB, median of 5): " + ", ".join(rates))
+    return out
+
+
+def data_rows_check(cfg, mesh, frames, n: int) -> str:
+    """`graphed_fuse_frame_windowed_packed` over a mesh of 2 data rows (2
+    streams, each on its row's cards) against the eager mesh program:
+    stats and every shard torch.equal after each of n frames."""
+    from densesurfelmapping_tpu_torch.core.state import (pack_aux,
+                                                          pack_frame_with_aux)
+    from densesurfelmapping_tpu_torch.parallel import sharding as SH
+    from densesurfelmapping_tpu_torch.parallel.multistream import (
+        unpack_payload)
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    home = mesh.device(0, 0)
+    g_banks = SH.replicate_banks(mesh, cfg, 2)
+    e_banks = SH.replicate_banks(mesh, cfg, 2)
+    step = SH.graphed_fuse_frame_windowed_packed(
+        cfg, mesh, g_banks, FS.graph_pool(mesh.devices()))
+    fn = SH.sharded_fuse_frame_windowed_packed(cfg, mesh)
+    mask = np.ones(cfg.max_keyframes, bool)
+    hw3 = 3 * cfg.height * cfg.width
+    for t in range(n):
+        payload = torch.from_numpy(np.stack([
+            pack_frame_with_aux(cfg, img, dep, pack_aux(pose, 0, mask))
+            for img, dep, pose in (frames[t], frames[t + 1])])).to(home)
+        got = step(payload)
+        bufs, poses, refs, _, masks = unpack_payload(payload, hw3)
+        _, want = fn(e_banks, bufs, poses, refs, masks)
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f"data rows: frame {t} stats differ")
+    require(step.graphed and step.replays == n
+            and same_sharded(g_banks, e_banks)
+            and int(g_banks.counts().sum()) > 0,
+            "data rows: graphed != the eager mesh program")
+    return (f"{mesh.shape} mesh {[[str(d) for d in r] for r in mesh.grid]}, "
+            f"2 streams x {n} frames (stream 1 a frame ahead): the graph's "
+            f"stats and every shard torch.equal to the eager mesh "
+            f"program's; counts {g_banks.counts().tolist()}")
+
+
+def phase_multicard(frames, pairs, smi: str) -> dict:
+    """The sharded drivers on meshes over every card of this machine
+    (`make_mesh(n)`: one cell per card; `make_mesh(2 n)`: two per card),
+    each mesh program one captured graph over the cards: against the eager
+    mesh programs on the same cards and the same mesh shape on virtual
+    shards of card 0 (torch.equal on every shard, before and after a loop
+    warp; the host pool's arrays equal too) and the dense drive (1e-4 m):
+    ShardedDeviceResidentMapping replicated, frame-sharded (24 frames
+    under the sync check after the first) and stereo (4 pairs);
+    ShardedSurfelMapping over the 60 host-pool frames (reads allowed);
+    launches by the profiler's records on each card; B5's cooperative
+    node on every card; the sharded SGM's replay == its eager call == the
+    plain replicated disparity; `make_mesh(n, data=2)`;
+    `entry.dryrun_multichip(n)` and `(2 n)`; graphed, eager and one-card
+    virtual-shard frames/s (median of 3), device busy ms per card, each
+    card's pool MiB and peak memory, the peer links.  On one card it
+    prints that it needs 2 or more and returns nothing.  Returns the
+    device runs of the kernels in the graphed drives."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say("multicard", f"needs 2 or more cards; this machine has "
+            f"{n_cards}: not run")
+        return {}
+    return multicard_checks(n_cards, frames, pairs)
+
+
+def multicard_checks(n_cards: int, frames, pairs) -> dict:
+    """The body of `phase_multicard` over cards 0 .. n_cards - 1 (with
+    n_cards = 1 it runs on one card, every mesh virtual)."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.entry import dryrun_multichip
+    from densesurfelmapping_tpu_torch.models import stereo as ST
+    from densesurfelmapping_tpu_torch.parallel import sgm_sharding
+    from densesurfelmapping_tpu_torch.parallel.sharding import (capture_plan,
+                                                                make_mesh)
+    from densesurfelmapping_tpu_torch.pipeline.device_driver import (
+        DeviceResidentMapping, ShardedDeviceResidentMapping)
+    from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
+    from densesurfelmapping_tpu_torch.pipeline.sharded_driver import (
+        ShardedSurfelMapping)
+
+    EagerSharded, EagerShardedPool = sharded_eager_classes()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    cards_label = "; ".join(f"cuda:{k} {c}" for k, c in enumerate(cards))
+    say("multicard", f"{n_cards} cards: {cards_label}")
+    for line in link_lines(n_cards):
+        say("multicard", line)
+    home = torch.device("cuda", 0)
+    cfg = kitti_config(surfel_capacity=1 << 21, compact_interval=16)
+    hp_cfg = dataclasses.replace(cfg, compaction_slack=HOST_POOL_SLACK,
+                                 compact_upload=False)
+    scfg = sgm_config()
+    drive_frames = frames[:N_SHARDED]
+    pairs = pairs[:N_SHARDED_STEREO]
+    slic = dict.fromkeys(SLIC, cfg.sp_iters)
+    no_sgm = dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0)
+    per_cell = {"sharded": dict(no_sgm, **slic),
+                "frame-sharded": dict(no_sgm, **dict.fromkeys(SLIC, 0)),
+                "stereo": dict(slic, sgm_census_x=1, sgm_census_y=1,
+                               sgm_axis_scan=0)}
+    total: dict = {}
+
+    def make(kind, mesh, cls=None):
+        return (cls or ShardedDeviceResidentMapping)(
+            cfg, mesh, frame_sharded=(kind == "frame-sharded"))
+
+    def run(kind, drv, checked=False):
+        if kind == "stereo":
+            feed_pairs(drv, pairs, scfg, checked)
+        else:
+            feed(drv, drive_frames, checked)
+        return drv
+
+    def stereo(drv):
+        drv.enable_stereo(bf=cfg.camera.fx * BASELINE_M, stereo_config=scfg)
+        return drv
+
+    def rate(kind, mesh, cls=None) -> float:
+        """Steady frames/s of a fresh drive of `kind` over `mesh`."""
+        if kind == "host pool":
+            return drive_host_pool(cls or ShardedSurfelMapping, hp_cfg,
+                                   home, frames, mesh=mesh)[1]
+        if kind == "stereo":
+            return rated(lambda: stereo(make(kind, mesh, cls)), None, pairs,
+                         0, len(pairs))[0]
+        return rated(lambda: make(kind, mesh, cls), drive_frames, None, 0,
+                     N_SHARDED)[0]
+
+    fed = {"stereo": f"{len(pairs)} pairs",
+           "host pool": f"{len(frames)} frames"}
+
+    if n_cards % 2 == 0:
+        say("multicard", data_rows_check(cfg, make_mesh(n_cards, data=2),
+                                         frames, 4))
+    for n in (n_cards, 2 * n_cards):
+        out = dryrun_multichip(n)
+        say("multicard", f"entry.dryrun_multichip({n}) on every card: {out}")
+
+    # the dense references on card 0
+    dense = {}
+    for kind in ("sharded", "stereo"):
+        d = run(kind, DeviceResidentMapping(cfg, device=home))
+        dense[kind] = sharded_rows(d)
+    dense["frame-sharded"] = dense["sharded"]
+    dense_pool = drive_host_pool(SurfelMapping, hp_cfg, home, frames)[0]
+    dense_rows = (sharded_rows(dense_pool),
+                  sharded_rows_of(dense_pool.pool.all_surfels()))
+    del d, dense_pool
+
+    for n_cells in (n_cards, 2 * n_cards):
+        mesh = make_mesh(n_cells)
+        virtual = make_mesh(n_cells, devices=home)
+        plan = capture_plan(mesh)
+        on_card = {d.index: len(c["cells"]) for d, c in plan["cards"].items()}
+        label = f"{n_cells} cells on {n_cards} cards"
+        require(plan["graphed"], f"{label}: not graphed")
+        say("multicard", f"{label}: capture plan: home {plan['home']}; "
+            + "; ".join(f"{d}: lane {c['lane']}, pool {c['pool']}, cells "
+                        f"{c['cells']} on cell streams {c['streams']}"
+                        for d, c in plan["cards"].items()))
+        for kind in ("sharded", "frame-sharded", "stereo"):
+            for k in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(k)
+            drv, ex = executed(lambda: run(kind, make(kind, mesh), True))
+            sync_all()
+            peak = {k: torch.cuda.max_memory_allocated(k) / 2**20
+                    for k in range(n_cards)}
+            add_runs(total, ex["runs"])
+            steps = len(pairs) if kind == "stereo" else N_SHARDED
+            require(drv.graphed and ex["captures"] == 1,
+                    f"{label} {kind}: graphed {drv.graphed}, "
+                    f"{ex['captures']} steps captured")
+            check_runs(ex, {k: v * n_cells
+                            for k, v in per_cell[kind].items()}, steps,
+                       f"{label} {kind}")
+            for card, cells_here in on_card.items():
+                got = ex["card_runs"].get(card, {})
+                for k, v in per_cell[kind].items():
+                    want = v * cells_here * (steps + 1)
+                    require(max(want - max(2, want // 20), 0)
+                            <= got.get(k, 0) <= want,
+                            f"{label} {kind}: cuda:{card} ran {k} "
+                            f"{got.get(k, 0)} times, want {want} "
+                            f"({v} per step on each of its {cells_here} "
+                            f"cells)")
+            e = run(kind, make(kind, mesh, EagerSharded))
+            v = run(kind, make(kind, virtual))
+            require(same_sharded(drv.bank, e.bank), f"{label} {kind}: "
+                    f"graphed != the eager mesh programs on the same cards")
+            require(same_sharded(drv.bank, v.bank), f"{label} {kind}: "
+                    f"!= the same mesh on virtual shards of one card")
+            err = same_map(sharded_rows(drv), dense[kind],
+                           f"{label} {kind}")
+            werr = check_warp(drv)
+            check_warp(e)
+            check_warp(v)
+            require(same_sharded(drv.bank, e.bank)
+                    and same_sharded(drv.bank, v.bank),
+                    f"{label} {kind}: after the loop warp graphed != eager "
+                    f"!= virtual")
+            replays = (drv._compact_graph.replays,
+                       drv._pose_warp_graph.replays)
+            require(replays[1] == 1 and replays[0] == drv.compactions,
+                    f"{label} {kind}: compaction/warp replays {replays}")
+            step = drv._stereo_graph if kind == "stereo" else drv._fuse_graph
+            coop = ""
+            if kind == "stereo":
+                nodes = mesh_kernel_nodes(
+                    lambda: step.fn(step.bank, *step.inputs), mesh.devices())
+                coops = [(c, gx, bx) for c, gx, bx, co in nodes if co]
+                per = {card: sum(c == card for c, _, _ in coops)
+                       for card in on_card}
+                require(per == on_card, f"{label}: cooperative kernel "
+                        f"nodes by card {per}, want one B5 per cell "
+                        f"{on_card}")
+                coop = (f"; B5's node cooperative in the mesh graph on "
+                        f"every card ({per} by card, grid x block "
+                        f"{sorted({(gx, bx) for _, gx, bx in coops})})")
+            ran = {c: {k: n for k, n in r.items() if per_cell[kind][k]}
+                   for c, r in sorted(ex["card_runs"].items())}
+            say("multicard", f"{label}, {kind} drive ({steps} "
+                f"{'pairs' if kind == 'stereo' else 'frames'}), graphed "
+                f"under the sync check after the first: every shard "
+                f"torch.equal to the eager mesh programs' on the same "
+                f"cards and to the same mesh on {n_cells} virtual shards "
+                f"of cuda:0, before and after a loop warp (within "
+                f"{werr:.2e} m); {len(sharded_rows(drv)['color'])} surfels "
+                f"== the dense drive's within {err:.3g} m; capture "
+                f"{step.capture_ms:.1f} ms; device runs by card {ran}"
+                f"{coop}; steps' pool MiB by card "
+                f"{pool_mib_by_card(drv._graph_pool)}, bank programs' "
+                f"{pool_mib_by_card(drv._bank_pool)}; peak MiB by card "
+                + ", ".join(f"cuda:{k} {m:.1f}" for k, m in peak.items()))
+            del drv, e, v
+
+        # the host-pool driver over the mesh
+        (g, _, _, reads), ex = executed(lambda: drive_host_pool(
+            ShardedSurfelMapping, hp_cfg, home, frames, sync_checked=True,
+            mesh=mesh))
+        add_runs(total, ex["runs"])
+        require(g.graphed and ex["captures"] == 1, f"{label} host pool: "
+                f"graphed {g.graphed}, {ex['captures']} steps captured")
+        check_runs(ex, {k: cfg.sp_iters * n_cells for k in SLIC},
+                   len(frames), f"{label} host pool")
+        e = drive_host_pool(EagerShardedPool, hp_cfg, home, frames,
+                            mesh=mesh)[0]
+        v = drive_host_pool(ShardedSurfelMapping, hp_cfg, home, frames,
+                            mesh=virtual)[0]
+
+        def pools_equal():
+            return (same_sharded(g.bank, e.bank) and same_pool(g.pool, e.pool)
+                    and same_sharded(g.bank, v.bank)
+                    and same_pool(g.pool, v.pool))
+        require(pools_equal(), f"{label} host pool: graphed != eager != "
+                f"virtual (banks torch.equal, pool arrays equal)")
+        err = max(same_map(sharded_rows(g), dense_rows[0],
+                           f"{label} host pool bank"),
+                  same_map(sharded_rows_of(g.pool.all_surfels()),
+                           dense_rows[1], f"{label} host pool pool"))
+        for drv in (g, e, v):
+            drv._do_compact()
+        werr = check_warp(g)
+        check_warp(e)
+        check_warp(v)
+        require(pools_equal(), f"{label} host pool: after a compaction and "
+                f"the loop warp graphed != eager != virtual")
+        replays = {name: getattr(g, f"_{name}_graph").replays for name in
+                   ("fuse", "compact", "extract", "append", "warp")}
+        say("multicard", f"{label}, ShardedSurfelMapping (host pool, padded "
+            f"upload) over {len(frames)} frames, graphed: banks torch.equal "
+            f"and pool ({len(g.pool)} surfels) equal to the eager mesh "
+            f"programs' and to {n_cells} virtual shards of cuda:0, before "
+            f"and after a compaction and a loop warp (within {werr:.2e} "
+            f"m); == the dense host pool within {err:.3g} m; replays "
+            f"{replays}; sync check: {reads['frames'] - reads['reading']} "
+            f"of {reads['frames']} frames after the first read nothing, "
+            f"the rest only in " + ", ".join(
+                f"{k} x{reads[k]}" for k in HOST_POOL_READS + ("capture",))
+            + f"; steps' pool MiB by card {pool_mib_by_card(g._graph_pool)}"
+            f", bank programs' {pool_mib_by_card(g._bank_pool)}")
+        del g, e, v
+
+        # the sharded SGM: replay == eager call == plain == virtual replay
+        # (KITTI size on one cell per card: each capture takes seconds)
+        scfg_p = scfg._replace(sgm_pallas=False)
+        for tag in ("61 x 97 crop", "KITTI")[:2 if n_cells == n_cards
+                                             else 1]:
+            li, ri = pairs[0][0], pairs[0][1]
+            left = torch.from_numpy(li).to(home).float()
+            right = torch.from_numpy(ri).to(home).float()
+            cfg_c = scfg_p
+            if tag != "KITTI":
+                left, right = left[100:161, 300:397], right[100:161, 300:397]
+                cfg_c = scfg_p._replace(max_disparity=40, min_disparity=3)
+            h, w = left.shape
+            want = ST.disparity(left, right, cfg_c)
+            sync_all()
+            t0 = time.perf_counter()
+            eager = sgm_sharding.sharded_sgm_disparity(mesh, cfg_c, h, w)(
+                left, right)
+            sync_all()
+            eager_s = time.perf_counter() - t0
+            graph = sgm_sharding.graphed_sharded_sgm_disparity(mesh, cfg_c,
+                                                               h, w)
+            first = graph(left, right).clone()
+            sync_all()
+            t0 = time.perf_counter()
+            got = graph(left, right)
+            sync_all()
+            replay_s = time.perf_counter() - t0
+            vgraph = sgm_sharding.graphed_sharded_sgm_disparity(
+                virtual, cfg_c, h, w)
+            vgot = vgraph(left, right)
+            require(graph.graphed and graph.replays == 2,
+                    f"{label} sharded SGM ({tag}): graphed {graph.graphed}")
+            require(torch.equal(first, eager) and torch.equal(got, eager)
+                    and torch.equal(got, want) and torch.equal(got, vgot),
+                    f"{label} sharded_sgm_disparity ({tag}): replay != "
+                    f"eager != plain != virtual")
+            say("multicard", f"{label}, sharded_sgm_disparity {tag} ({h} x "
+                f"{w}): the replays == the eager call == the replicated "
+                f"plain disparity == the virtual-shard replay (torch.equal);"
+                f" eager {eager_s:.3f} s, capture {graph.capture_ms / 1e3:.3f}"
+                f" s, replay {replay_s:.3f} s, pool MiB by card "
+                f"{pool_mib_by_card(graph.pool)} (plain scans)")
+            del graph, vgraph
+
+        # rates: graphed and eager over the cards, graphed on one card
+        kinds = (("sharded", "host pool", "frame-sharded", "stereo")
+                 if n_cells == n_cards else ("sharded",))
+        for kind in kinds:
+            eager = EagerShardedPool if kind == "host pool" else EagerSharded
+            for name, on, cls in (
+                    ("graphed", mesh, None), ("eager", mesh, eager),
+                    (f"one card, {n_cells} virtual shards", virtual, None)):
+                runs = [rate(kind, on, cls) for _ in range(N_RATE)]
+                say("multicard", median_line(
+                    f"{label} {kind} {name}", runs,
+                    fed.get(kind, f"{N_SHARDED} frames"))
+                    + f" ({cards_label})")
+        for kind in ("sharded", "stereo") if n_cells == n_cards else (
+                "sharded",):
+            drv = make(kind, mesh)
+            if kind == "stereo":
+                stereo(drv)
+            step, _ = steps_of(drv, drive_frames,
+                               pairs if kind == "stereo" else None)
+            n_prof = len(pairs) - 2 if kind == "stereo" else N_PROF
+            say("multicard", f"{label} {kind} graphed, {n_prof} "
+                f"{'pairs' if kind == 'stereo' else 'frames'} under the "
+                f"profiler: " + cards_line(profiled_cards(step, 2, n_prof)))
+            del drv
+
+    return total
+
+
+def add_runs(total: dict, runs: dict) -> None:
+    for k, v in runs.items():
+        total[k] = total.get(k, 0) + v
+
+
 PHASES = ("kernels", "sgm", "drive", "stereo", "graph", "multi-kernels",
-          "multi", "multi-stereo", "batch", "sharded", "cli", "profile")
+          "multi", "multi-stereo", "batch", "sharded", "multicard", "cli",
+          "profile")
 
 
 def main() -> None:
@@ -3422,11 +3953,15 @@ def main() -> None:
     if run("batch"):
         add(phase_batch(device, frames))
         lap("batch")
-    if run("sharded"):
+    if run("sharded") or run("multicard"):
         if pairs is None:
             pairs = make_pairs(cfg, N_SHARDED_STEREO)
+    if run("sharded"):
         add(phase_sharded(device, frames, pairs, smi))
         lap("sharded")
+    if run("multicard"):
+        add(phase_multicard(frames, pairs, smi))
+        lap("multicard")
     if run("cli"):
         add(phase_cli(device, frames))
         lap("cli")

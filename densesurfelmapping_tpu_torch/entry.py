@@ -4,10 +4,11 @@
     python -c "from densesurfelmapping_tpu_torch.entry import \\
         dryrun_multichip; dryrun_multichip(8)"
 
-builds an n-cell mesh (virtual shards where there are fewer cards than
-cells), runs the sharded fuse step on tiny frames, checks it against the
-single-device step, then runs the sharded bank lifecycle (migration
-extract, compaction, loop warp) and one windowed step.
+builds an n-cell mesh over every card (virtual shards where there are
+fewer cards than cells: 8 cells on 4 cards are 2 per card), runs the
+sharded fuse step on tiny frames, checks it against the single-device
+step, then runs the sharded bank lifecycle (migration extract,
+compaction, loop warp) and one windowed step.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import torch
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """One sharded step over an n_devices mesh of `device` (cuda by
-    default, which raises without a card); returns the totals it
-    checked."""
+    """One sharded step over an n_devices mesh of `device`: "cuda" (the
+    default, which raises without a card) is every card of the machine,
+    another device (e.g. "cpu", "cuda:1") that device alone; returns the
+    totals it checked."""
     from .config import CameraIntrinsics, SurfelMapConfig
     from .core.state import FrameInput, SurfelBank, pad_frame
     from .io import synthetic
@@ -28,7 +30,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     from .pipeline.fuse_step import fuse_frame
 
     data = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
-    mesh = sharding.make_mesh(n_devices, data=data, devices=device)
+    mesh = sharding.make_mesh(n_devices, data=data,
+                              devices=None if device == "cuda" else device)
     dev = mesh.device(0, 0)
 
     cam = CameraIntrinsics(width=64, height=48, fx=60.0, fy=60.0,

@@ -173,17 +173,25 @@ def slab_segmentation(config: SurfelMapConfig, n_slabs: int,
     (`devices[s]` runs slab s; default: the image's device for all).
     Every shard segments its slab; the owned columns are then gathered
     into the full-frame (seeds, assignment) each shard needs.  Returns one
-    (seeds, assignment) per shard, on its device."""
+    (seeds, assignment) per shard, on its device.  Both passes run on the
+    shards' streams (`sharding.cells`) inside a mesh program over the
+    devices."""
+    devices = devices or [image.device] * n_slabs
+    with sharding.mesh_program([image.device] + list(devices)):
+        return _slab_segmentation(config, n_slabs, image, depth, devices)
+
+
+def _slab_segmentation(config, n_slabs, image, depth, devices):
     ext = _extended_geometry(config, n_slabs)
     sp, own, halo = config.sp_size, ext["own"], ext["halo"]
     C = config.sp_cols
-    devices = devices or [image.device] * n_slabs
 
     pad = (halo * sp, (ext["c_round"] - C) * sp + halo * sp)
     img_e, dep_e = F.pad(image, pad), F.pad(depth, pad)
     slab_w = (own + 2 * halo) * sp
     owned = []
-    for s, dev in enumerate(devices):
+    for s in sharding.cells(devices):
+        dev = devices[s]
         x0 = s * own * sp
         img_s = sharding._to(img_e[:, x0:x0 + slab_w], dev).contiguous()
         dep_s = sharding._to(dep_e[:, x0:x0 + slab_w], dev).contiguous()
@@ -198,7 +206,8 @@ def slab_segmentation(config: SurfelMapConfig, n_slabs: int,
     # the gather: every shard concatenates all shards' owned columns, then
     # crops the divisibility padding back to the config's grid
     out = []
-    for dev in devices:
+    for s in sharding.cells(devices):
+        dev = devices[s]
         seeds = SuperpixelState(**{
             f.name: torch.cat([sharding._to(getattr(o[0], f.name), dev)
                                for o in owned], dim=1)[:, :C]
@@ -221,13 +230,14 @@ def sharded_fuse_frame_framestage(config: SurfelMapConfig,
 
     def step(banks: sharding.ShardedBanks, frames):
         per_stream = []
-        for b, row in enumerate(banks.shards):
-            fr = frames[b]
-            seg = slab_segmentation(config, n, fr[0].image, fr[0].depth,
-                                    [bank.device for bank in row])
-            per_stream.append(sharding._fuse_stream(config, row, fr,
-                                                    segmented=seg))
-        return banks, sharding._stack_streams(per_stream)
+        with sharding.mesh_program(banks.devices()):
+            for b, row in enumerate(banks.shards):
+                fr = frames[b]
+                seg = slab_segmentation(config, n, fr[0].image, fr[0].depth,
+                                        [bank.device for bank in row])
+                per_stream.append(sharding._fuse_stream(config, row, fr,
+                                                        segmented=seg))
+            return banks, sharding._stack_streams(per_stream)
     return step
 
 
@@ -243,16 +253,17 @@ def sharded_fuse_frame_framestage_windowed_packed(config: SurfelMapConfig,
 
     def step(banks: sharding.ShardedBanks, bufs, poses, refs, masks):
         per_stream = []
-        for b, row in enumerate(banks.shards):
-            frames = sharding._packed_frames(config, row, bufs[b], poses[b],
-                                             refs[b])
-            seg = slab_segmentation(config, n, frames[0].image,
-                                    frames[0].depth,
-                                    [bank.device for bank in row])
-            per_stream.append(sharding._fuse_stream(
-                config, row, frames, segmented=seg,
-                pose_masks=sharding._replicate(masks[b], row)))
-        return banks, sharding._stack_streams(per_stream)
+        with sharding.mesh_program(banks.devices()):
+            for b, row in enumerate(banks.shards):
+                frames = sharding._packed_frames(config, row, bufs[b],
+                                                 poses[b], refs[b])
+                seg = slab_segmentation(config, n, frames[0].image,
+                                        frames[0].depth,
+                                        [bank.device for bank in row])
+                per_stream.append(sharding._fuse_stream(
+                    config, row, frames, segmented=seg,
+                    pose_masks=sharding._replicate(masks[b], row)))
+            return banks, sharding._stack_streams(per_stream)
     return step
 
 
@@ -276,8 +287,9 @@ def graphed_fuse_frame_framestage(config: SurfelMapConfig,
     fuse = sharded_fuse_frame_framestage(config, mesh)
 
     def step(b: sharding.ShardedBanks, payload: torch.Tensor) -> dict:
-        frames, _ = sharding.unpack_padded(config, payload)
-        return fuse(b, sharding.shard_frames(mesh, frames))[1]
+        with sharding.mesh_program(b.devices()):
+            frames, _ = sharding.unpack_padded(config, payload)
+            return fuse(b, sharding.shard_frames(mesh, frames))[1]
 
     return sharding.mesh_step_graph(
         mesh, banks, step, sharding.padded_payload_bytes(config, mask=False),

@@ -37,7 +37,7 @@ from ..models.stereo import (StereoConfig, _SGM_BIG, _SGM_BIG_BF16,
                              _axis_scan, _census, _census_volume,
                              _popcount32, _post_filters, _sgm_dp,
                              _wta_and_gates)
-from .sharding import Mesh, _to, graphed_mesh
+from .sharding import Mesh, _to, cells, graphed_mesh, mesh_program
 
 
 def _round_up(x: int, m: int) -> int:
@@ -78,7 +78,14 @@ def _ring_axis_scan(slabs: List[torch.Tensor], rolls, p1: float, p2: float,
     columns [s * wn, (s + 1) * wn)), the shards in lockstep: at every step
     each roll != 0 channel takes its boundary carry column from the ring
     neighbour its roll crosses from.  Returns each slab's f32 path sums.
-    p1, p2: the penalties already in carry dtype (`_carry_penalties`)."""
+    p1, p2: the penalties already in carry dtype (`_carry_penalties`).
+
+    Inside a mesh program each shard's steps run on its card's lane, and
+    a carry from another card is a peer copy whose event barrier orders
+    the two lanes: the ring's lockstep across cards, with no fork and
+    join per row.  Shards of one card share its lane, in shard order (a
+    pass over the shards, `sharding.cells`, at every one of the 2 H rows
+    made the capture at KITTI size 3.5x slower on one H100)."""
     n = len(slabs)
     g = len(rolls)
     H, wn, D = slabs[0].shape
@@ -140,7 +147,9 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
     """(left, right[, prior_disp]) -> (H, W) disparity with the SGM
     aggregation axis-sharded over the mesh's "surfel" axis (row 0 of the
     grid); bitwise equal to `models/stereo.disparity` on the plain scan
-    path (sgm_pallas=False).  Census cost only."""
+    path (sgm_pallas=False).  Census cost only.  A mesh program over the
+    row's cards (`sharding.mesh_program`): each slab pass on the shards'
+    streams, the census, the gathers and the WTA on the home card."""
     if cfg.cost != "census":
         raise ValueError("axis-sharded SGM supports census cost only "
                          "(integer costs make the padding exact)")
@@ -156,6 +165,10 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
     cp1, cp2 = _carry_penalties(p1, p2, bf16)
 
     def run(left, right, prior_disp=None):
+        with mesh_program([left.device] + devs):
+            return _run(left, right, prior_disp)
+
+    def _run(left, right, prior_disp):
         home = left.device
         cl = _census(left, cfg.census_radius)
         cr = _census(right, cfg.census_radius)
@@ -163,7 +176,8 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
         # horizontal family: row slabs (pad rows are independent chains)
         clr, crr = F.pad(cl, (0, 0, 0, hp - h)), F.pad(cr, (0, 0, 0, hp - h))
         x_parts = []
-        for s, dev in enumerate(devs):
+        for s in cells(devs):
+            dev = devs[s]
             rows = slice(s * hn, (s + 1) * hn)
             vol = _census_volume(_to(clr[rows], dev), _to(crr[rows], dev),
                                  min_d, n_d)
@@ -176,13 +190,14 @@ def sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig, height: int,
         # vertical (+ diagonal) family: column slabs
         clc = F.pad(cl, (0, wp - w))
         vv = []
-        for s, dev in enumerate(devs):
+        for s in cells(devs):
+            dev = devs[s]
             vol = _slab_cost_cols(_to(clc[:, s * wn:(s + 1) * wn], dev),
                                   _to(cr, dev), s * wn, w, min_d, n_d)
             vv.append(vol.permute(1, 2, 0).contiguous())  # (H, wn, D)
         if cfg.sgm_paths == 4:
-            sums = [_axis_scan(v, (0,), p1, p2, carry_bf16=bf16)
-                    for v in vv]
+            sums = [_axis_scan(vv[s], (0,), p1, p2, carry_bf16=bf16)
+                    for s in cells(devs)]
         else:
             sums = _ring_axis_scan(vv, (0, 1, -1), cp1, cp2, w, min_d,
                                    carry_bf16=bf16)
@@ -204,12 +219,16 @@ def graphed_sharded_sgm_disparity(mesh: Mesh, cfg: StereoConfig,
     without a bank whose static inputs are left and right ((H, W) f32) and,
     if `with_prior`, prior_disp, on the home cell.  Call: (left, right[,
     prior_disp]) -> the (H, W) disparity, a static output that the next
-    call overwrites.  Eager on a CPU mesh and on a mesh over several cards
+    call overwrites.  One capture over the row's cards, the ring's carry
+    copies between cards inside it, each card's memory from a pool of the
+    object's own (`fuse_step.graph_pool`); eager on a CPU mesh
     (`sharding.graphed_mesh`)."""
-    from ..pipeline.fuse_step import BankGraph
+    from ..pipeline.fuse_step import BankGraph, graph_pool
     run = sharded_sgm_disparity(mesh, cfg, height, width)
     spec = ((height, width), torch.float32)
     row = Mesh([mesh.grid[0]])
+    graphed = graphed_mesh(row)
     return BankGraph(lambda _, *images: run(*images), None,
                      (spec,) * (3 if with_prior else 2),
-                     graphed=graphed_mesh(row), device=mesh.device(0, 0))
+                     pool=graph_pool(row.devices()) if graphed else None,
+                     graphed=graphed, devices=row.devices())

@@ -17,9 +17,13 @@ The collectives of the JAX package are explicit tensor operations across
 the shards' tensors here (`_all_reduce`): the max of the fused flags, the
 sum of the stats, the min of the prior's coarse z-buffers; with several
 cards they are peer copies.  With one card the grid repeats it (virtual
-shards, as the JAX tests run 8 virtual CPU devices): every shard's work
-then runs on that card one after another, in the order of the shards, on
-the current stream.
+shards, as the JAX tests run 8 virtual CPU devices).  On CUDA every mesh
+program runs inside `mesh_program`: each card works on a stream of the
+program (its lane), and each pass over the shards (`cells`) gives every
+shard a stream of its own, forked from its card's lane and joined back
+after the pass, so the shards' work overlaps across cards and on one card
+(virtual shards); the collectives run between the passes.  Captured, the
+same forks and joins are the edges of one CUDA graph over every card.
 
 The superpixel/plane-fit stage, and the stereo front-end, run replicated on
 every shard's device, the JAX package's policy: on CUDA that is B1-B3 (and
@@ -29,8 +33,11 @@ segmentation by image columns instead.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -54,7 +61,8 @@ class Mesh:
         return self.grid[row][shard]
 
     def devices(self) -> List[torch.device]:
-        """The distinct devices of the grid, in row-major order."""
+        """The distinct devices of the grid, in row-major order (the home
+        cell's first)."""
         return list(dict.fromkeys(d for row in self.grid for d in row))
 
     def __repr__(self) -> str:
@@ -135,6 +143,12 @@ class ShardedBanks:
                    for row in self.shards for b in row
                    for _, t in b.field_arrays())
 
+    def devices(self) -> List[torch.device]:
+        """The distinct devices of the banks, in (stream, shard) order
+        (stream 0's first shard, the home cell, first)."""
+        return list(dict.fromkeys(b.device for row in self.shards
+                                  for b in row))
+
 
 def replicate_banks(mesh: Mesh, config: SurfelMapConfig,
                     n_streams: int) -> ShardedBanks:
@@ -183,6 +197,125 @@ def shard_frames(mesh: Mesh, frames: FrameInput) -> List[List[FrameInput]]:
 
 
 # ----------------------------------------------------------------------
+# streams: each card's lane, each cell's stream
+# ----------------------------------------------------------------------
+class _Program(threading.local):
+    lanes = None    # card -> its lane, inside a CUDA mesh program
+
+
+_PROGRAM = _Program()
+
+
+@functools.lru_cache(maxsize=None)
+def _stream(device: torch.device, k: int) -> torch.cuda.Stream:
+    """The mesh programs' k-th stream on a card: k = 0 its lane (not
+    the home card's, whose lane is the caller's stream), k >= 1 its k-th
+    cell's.  Fixed streams: the caching allocator keeps its free blocks
+    per stream, so new streams per call would keep growing them."""
+    return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def mesh_program(devices):
+    """Run a mesh program over `devices` (its cells' cards, the home
+    card first): the home card's lane is the caller's current stream
+    (`main`), every other card's lane its own stream, forked from main on
+    entry and joined into main on exit, and current on that card while
+    the program runs, so PyTorch issues each card's work and the peer
+    copies between cards (two-way event barriers between the two cards'
+    current streams) on the lanes.  Outside a capture the lanes also
+    fork from and join into each card's stream current before the call,
+    so work around the call stays ordered; under a capture (main
+    capturing) they fork and join main alone, and a replay orders the
+    other cards' streams (`fuse_step.BankGraph.replay`).  Nested calls,
+    CPU meshes: no-op."""
+    devs = list(dict.fromkeys(torch.device(d) for d in devices))
+    if _PROGRAM.lanes is not None or devs[0].type != "cuda":
+        yield
+        return
+    home = devs[0]
+    main = torch.cuda.current_stream(home)
+    with torch.cuda.device(home):
+        capturing = torch.cuda.is_current_stream_capturing()
+    outer = {d: torch.cuda.current_stream(d) for d in devs[1:]}
+    lanes = {home: main, **{d: _stream(d, 0) for d in devs[1:]}}
+    for d in devs[1:]:
+        lanes[d].wait_stream(main)
+        if not capturing:
+            lanes[d].wait_stream(outer[d])
+    _PROGRAM.lanes = lanes
+    try:
+        with contextlib.ExitStack() as stack:
+            for d in devs[1:]:
+                stack.enter_context(torch.cuda.stream(lanes[d]))
+            stack.enter_context(torch.cuda.device(home))
+            yield
+    finally:
+        _PROGRAM.lanes = None
+    for d in devs[1:]:
+        main.wait_stream(lanes[d])
+        if not capturing:
+            outer[d].wait_stream(lanes[d])
+
+
+def cell_streams(devices) -> List[tuple]:
+    """(card, k) of each cell's stream in a pass over `devices`: the k-th
+    cell on a card (k >= 1) runs on that card's k-th cell stream,
+    `_stream(card, k)` (k = 0 is the card's lane)."""
+    nth = collections.Counter()
+    out = []
+    for d in devices:
+        nth[d] += 1
+        out.append((d, nth[d]))
+    return out
+
+
+def capture_plan(mesh: "Mesh") -> dict:
+    """What a graph of a program over `mesh`'s banks does on each card,
+    from the devices alone (nothing allocated): whether the mesh is
+    graphed (`graphed_mesh`); its home card (the capture stream, the
+    static inputs, the replay's stream); and per card: its lane (the home
+    card's is the capture stream, k = 0 another card's `_stream`), where
+    its allocations go under the capture (the home card's through the
+    graph's pool argument, the others' through `use_mem_pool`:
+    `fuse_step.capture`), its cells as (row, shard) (the banks the
+    warm-up clones on that card) and their streams' k (`cell_streams`, per
+    data row: each row's pass is its own)."""
+    home = mesh.device(0, 0)
+    cards = {d: dict(lane="capture" if d == home else 0,
+                     pool="graph" if d == home else "use_mem_pool",
+                     cells=[], streams=[]) for d in mesh.devices()}
+    for r, row in enumerate(mesh.grid):
+        for s, (d, k) in enumerate(cell_streams(row)):
+            cards[d]["cells"].append((r, s))
+            cards[d]["streams"].append(k)
+    return dict(graphed=graphed_mesh(mesh), home=home, cards=cards)
+
+
+def cells(devices):
+    """Iterate s over the cells of one pass (`devices[s]`: cell s's
+    card), each iteration's work on cell s's own stream: every cell's
+    stream forks from its card's lane before the first iteration and the
+    lanes join every cell's stream after the last, so a cell may read
+    what the lanes or earlier passes made, and the lanes may read what
+    the pass made, but cells of one pass must not read each other's
+    results.  Outside a CUDA mesh program: a plain range."""
+    devices = list(devices)
+    lanes = _PROGRAM.lanes
+    if lanes is None:
+        yield from range(len(devices))
+        return
+    streams = [_stream(d, k) for d, k in cell_streams(devices)]
+    for st, d in zip(streams, devices):
+        st.wait_stream(lanes[d])
+    for s, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            yield s
+    for st, d in zip(streams, devices):
+        lanes[d].wait_stream(st)
+
+
+# ----------------------------------------------------------------------
 # the collectives, as tensor operations across the shards
 # ----------------------------------------------------------------------
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -223,10 +356,12 @@ def _fuse_stream(config: SurfelMapConfig, row: List[SurfelBank],
     frames: the stream's frame on each shard's device.  segmented
     (optional, one (seeds, assignment) per shard) is a precomputed
     full-frame segmentation (`parallel/frame_sharding.py`); None runs the
-    stage replicated on every shard."""
+    stage replicated on every shard.  Each pass over the shards runs on
+    their streams (`cells`); the collectives between the passes."""
     n = len(row)
+    devs = [b.device for b in row]
     seeds_l, fused_l = [], []
-    for s in range(n):
+    for s in cells(devs):
         fr = frames[s]
         with torch.profiler.record_function("superpixel"):
             if segmented is None:
@@ -248,7 +383,7 @@ def _fuse_stream(config: SurfelMapConfig, row: List[SurfelBank],
     fused_all = [f > 0 for f in _all_reduce(fused_l, torch.maximum)]
     per_shard = []
     with torch.profiler.record_function("initialize"):
-        for s in range(n):
+        for s in cells(devs):
             fr = frames[s]
             new_fields, new_mask = fusion.extract_new_surfels(
                 config, seeds_l[s], fused_all[s], fr.pose, fr.frame_index)
@@ -272,9 +407,10 @@ def sharded_fuse_frame(config: SurfelMapConfig, mesh: Mesh):
     del mesh    # the banks and frames carry their devices
 
     def step(banks: ShardedBanks, frames):
-        return banks, _stack_streams([
-            _fuse_stream(config, banks.shards[b], frames[b])
-            for b in range(banks.n_streams)])
+        with mesh_program(banks.devices()):
+            return banks, _stack_streams([
+                _fuse_stream(config, banks.shards[b], frames[b])
+                for b in range(banks.n_streams)])
     return step
 
 
@@ -285,10 +421,11 @@ def sharded_fuse_frame_windowed(config: SurfelMapConfig, mesh: Mesh):
     del mesh
 
     def step(banks: ShardedBanks, frames, masks: torch.Tensor):
-        return banks, _stack_streams([
-            _fuse_stream(config, row, frames[b],
-                         pose_masks=_replicate(masks[b], row))
-            for b, row in enumerate(banks.shards)])
+        with mesh_program(banks.devices()):
+            return banks, _stack_streams([
+                _fuse_stream(config, row, frames[b],
+                             pose_masks=_replicate(masks[b], row))
+                for b, row in enumerate(banks.shards)])
     return step
 
 
@@ -315,12 +452,13 @@ def sharded_fuse_frame_windowed_packed(config: SurfelMapConfig, mesh: Mesh):
     del mesh
 
     def step(banks: ShardedBanks, bufs, poses, refs, masks):
-        return banks, _stack_streams([
-            _fuse_stream(config, row,
-                         _packed_frames(config, row, bufs[b], poses[b],
-                                        refs[b]),
-                         pose_masks=_replicate(masks[b], row))
-            for b, row in enumerate(banks.shards)])
+        with mesh_program(banks.devices()):
+            return banks, _stack_streams([
+                _fuse_stream(config, row,
+                             _packed_frames(config, row, bufs[b], poses[b],
+                                            refs[b]),
+                             pose_masks=_replicate(masks[b], row))
+                for b, row in enumerate(banks.shards)])
     return step
 
 
@@ -334,9 +472,11 @@ def sharded_prior(config: SurfelMapConfig, stereo_config, row, poses):
     from ..pipeline.fuse_step import _stereo_prior
     if not stereo_config.prior_rescue or stereo_config.hierarchical:
         return [None] * len(row)
-    coarse = [coarse_zbuffer(config, b, p, stereo_config.prior_stride,
+    devs = [b.device for b in row]
+    coarse = [coarse_zbuffer(config, row[s], poses[s],
+                             stereo_config.prior_stride,
                              stereo_config.prior_min_updates)
-              for b, p in zip(row, poses)]
+              for s in cells(devs)]
 
     def merge(s):
         def reduce(local):
@@ -346,8 +486,8 @@ def sharded_prior(config: SurfelMapConfig, stereo_config, row, poses):
             return local
         return reduce
 
-    return [_stereo_prior(config, stereo_config, b, poses[s],
-                          reduce=merge(s)) for s, b in enumerate(row)]
+    return [_stereo_prior(config, stereo_config, row[s], poses[s],
+                          reduce=merge(s)) for s in cells(devs)]
 
 
 def _stereo_stream(config, stereo_config, filter_depth, row, buf, pose,
@@ -362,7 +502,8 @@ def _stereo_stream(config, stereo_config, filter_depth, row, buf, pose,
     poses = _replicate(pose, row)
     priors = sharded_prior(config, stereo_config, row, poses)
     frames, rescued = [], None
-    for s, b in enumerate(row):
+    for s in cells([b.device for b in row]):
+        b = row[s]
         left, right = unpack_stereo(config, _to(buf, b.device))
         depth, n_rescued = compute_depth_stereo(
             config, stereo_config, left, right, _to(bf, b.device),
@@ -391,10 +532,11 @@ def sharded_fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
     del mesh
 
     def step(banks: ShardedBanks, bufs, poses, refs, bfs, masks):
-        return banks, _stack_streams([
-            _stereo_stream(config, stereo_config, filter_depth, row,
-                           bufs[b], poses[b], refs[b], bfs[b], masks[b])
-            for b, row in enumerate(banks.shards)])
+        with mesh_program(banks.devices()):
+            return banks, _stack_streams([
+                _stereo_stream(config, stereo_config, filter_depth, row,
+                               bufs[b], poses[b], refs[b], bfs[b], masks[b])
+                for b, row in enumerate(banks.shards)])
     return step
 
 
@@ -407,10 +549,11 @@ def sharded_fuse_frame_stereo(config: SurfelMapConfig, stereo_config,
     del mesh
 
     def step(banks: ShardedBanks, bufs, poses, refs, bfs):
-        return banks, _stack_streams([
-            _stereo_stream(config, stereo_config, filter_depth, row,
-                           bufs[b], poses[b], refs[b], bfs[b], None)
-            for b, row in enumerate(banks.shards)])
+        with mesh_program(banks.devices()):
+            return banks, _stack_streams([
+                _stereo_stream(config, stereo_config, filter_depth, row,
+                               bufs[b], poses[b], refs[b], bfs[b], None)
+                for b, row in enumerate(banks.shards)])
     return step
 
 
@@ -424,13 +567,14 @@ def sharded_warp_by_pose(config: SurfelMapConfig, mesh: Mesh):
     del config, mesh
 
     def warp(banks: ShardedBanks, warps, moved, masks, firsts):
-        for b, row in enumerate(banks.shards):
-            for bank in row:
-                d = bank.device
-                warp_ops.warp_bank_by_pose(bank, _to(warps[b], d),
-                                           _to(moved[b], d),
-                                           _to(masks[b], d),
-                                           _to(firsts[b], d))
+        with mesh_program(banks.devices()):
+            for b, row in enumerate(banks.shards):
+                for s in cells([bank.device for bank in row]):
+                    d = row[s].device
+                    warp_ops.warp_bank_by_pose(row[s], _to(warps[b], d),
+                                               _to(moved[b], d),
+                                               _to(masks[b], d),
+                                               _to(firsts[b], d))
         return banks
     return warp
 
@@ -441,9 +585,10 @@ def sharded_compact(config: SurfelMapConfig, mesh: Mesh):
     del config, mesh
 
     def compact(banks: ShardedBanks):
-        for row in banks.shards:
-            for bank in row:
-                fusion.compact_bank(bank)
+        with mesh_program(banks.devices()):
+            for row in banks.shards:
+                for s in cells([bank.device for bank in row]):
+                    fusion.compact_bank(row[s])
         return banks
     return compact
 
@@ -465,18 +610,19 @@ def sharded_extract_by_pose(config: SurfelMapConfig, mesh: Mesh,
         dev = banks.shards[0][0].device
         bufs = {k: [] for k in FIELDS}
         ns = []
-        for row in banks.shards:
-            ns_row = []
-            for bank in row:
-                buf, n = extract_by_pose(bank, _to(pose_ids, bank.device),
-                                         buffer_size)
-                for k in FIELDS:
-                    bufs[k].append(_to(buf[k], dev))
-                ns_row.append(_to(n, dev))
-            ns.append(torch.stack(ns_row))
-        b = banks.n_streams
-        return banks, {k: torch.cat(v).view((b, -1) + v[0].shape[1:])
-                       for k, v in bufs.items()}, torch.stack(ns)
+        with mesh_program(banks.devices()):
+            for row in banks.shards:
+                ns_row = []
+                for s in cells([bank.device for bank in row]):
+                    buf, n = extract_by_pose(
+                        row[s], _to(pose_ids, row[s].device), buffer_size)
+                    for k in FIELDS:
+                        bufs[k].append(_to(buf[k], dev))
+                    ns_row.append(_to(n, dev))
+                ns.append(torch.stack(ns_row))
+            b = banks.n_streams
+            return banks, {k: torch.cat(v).view((b, -1) + v[0].shape[1:])
+                           for k, v in bufs.items()}, torch.stack(ns)
     return extract
 
 
@@ -489,13 +635,14 @@ def sharded_append(config: SurfelMapConfig, mesh: Mesh, per_buf: int):
     del config, mesh
 
     def append(banks: ShardedBanks, fields: dict, ns: torch.Tensor):
-        for b, row in enumerate(banks.shards):
-            for s, bank in enumerate(row):
-                d = bank.device
-                part = {k: _to(v[b, s * per_buf:(s + 1) * per_buf], d)
-                        for k, v in fields.items()}
-                mask = torch.arange(per_buf, device=d) < _to(ns[b, s], d)
-                fusion.append_new(bank, part, mask)
+        with mesh_program(banks.devices()):
+            for b, row in enumerate(banks.shards):
+                for s in cells([bank.device for bank in row]):
+                    d = row[s].device
+                    part = {k: _to(v[b, s * per_buf:(s + 1) * per_buf], d)
+                            for k, v in fields.items()}
+                    mask = torch.arange(per_buf, device=d) < _to(ns[b, s], d)
+                    fusion.append_new(row[s], part, mask)
         return banks
     return append
 
@@ -507,9 +654,11 @@ def sharded_warp_active(config: SurfelMapConfig, mesh: Mesh):
     del config, mesh
 
     def warp(banks: ShardedBanks, warps: torch.Tensor):
-        for b, row in enumerate(banks.shards):
-            for bank in row:
-                warp_ops.warp_active(bank, _to(warps[b], bank.device))
+        with mesh_program(banks.devices()):
+            for b, row in enumerate(banks.shards):
+                for s in cells([bank.device for bank in row]):
+                    warp_ops.warp_active(row[s],
+                                         _to(warps[b], row[s].device))
         return banks
     return warp
 
@@ -520,15 +669,14 @@ def sharded_warp_active(config: SurfelMapConfig, mesh: Mesh):
 # mesh's banks each, its static inputs on the home cell
 # ----------------------------------------------------------------------
 def graphed_mesh(mesh: Mesh) -> bool:
-    """Whether a mesh's programs replay captured graphs: every cell is the
-    same card.  The design is one graph per device; on one card that is
-    one graph over every shard's program and the collectives (whose copies
-    are then no-ops).  A mesh over several cards would join its per-card
-    graphs by events, which is neither built nor verified, so it keeps the
-    eager mesh programs (the factories below build their objects with
-    graphed=False); a CPU mesh runs them eagerly too."""
-    devs = mesh.devices()
-    return len(devs) == 1 and devs[0].type == "cuda"
+    """Whether a mesh's programs replay captured graphs: every cell is a
+    CUDA card, one card repeated or several (8 cells on 4 cards too).
+    One capture spans the cards: the program's lanes and cell streams
+    (`mesh_program`, `cells`) fork from the capture stream and join it,
+    the peer copies between cards become copy nodes with their event
+    edges, and each card allocates from its own memory pool
+    (`fuse_step.capture`).  A CPU mesh runs the programs eagerly."""
+    return all(d.type == "cuda" for d in mesh.devices())
 
 
 def mesh_step_graph(mesh: Mesh, banks: ShardedBanks, step, nbytes: int,
@@ -547,8 +695,8 @@ def mesh_bank_graph(mesh: Mesh, banks: ShardedBanks, fn, specs, pool):
 
 def step_geometry(config: SurfelMapConfig, mesh: Mesh):
     """The cached geometry planes the replicated frame stage reads on every
-    device of the mesh (kept alive by its graph: the cache may evict
-    them)."""
+    card of the mesh (kept alive by its graph: the cache may evict
+    them, and a graph reads each card's planes at their addresses)."""
     return [superpixel.device_geometry(config, d) for d in mesh.devices()]
 
 
@@ -586,8 +734,9 @@ def graphed_fuse_frame(config: SurfelMapConfig, mesh: Mesh,
     fuse = sharded_fuse_frame(config, mesh)
 
     def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
-        frames, _ = unpack_padded(config, payload)
-        return fuse(b, shard_frames(mesh, frames))[1]
+        with mesh_program(b.devices()):
+            frames, _ = unpack_padded(config, payload)
+            return fuse(b, shard_frames(mesh, frames))[1]
 
     return mesh_step_graph(mesh, banks, step,
                            padded_payload_bytes(config, mask=False), pool,
@@ -602,8 +751,9 @@ def graphed_fuse_frame_windowed(config: SurfelMapConfig, mesh: Mesh,
     fuse = sharded_fuse_frame_windowed(config, mesh)
 
     def step(b: ShardedBanks, payload: torch.Tensor) -> dict:
-        frames, masks = unpack_padded(config, payload)
-        return fuse(b, shard_frames(mesh, frames), masks)[1]
+        with mesh_program(b.devices()):
+            frames, masks = unpack_padded(config, payload)
+            return fuse(b, shard_frames(mesh, frames), masks)[1]
 
     return mesh_step_graph(mesh, banks, step,
                            padded_payload_bytes(config, mask=True), pool,

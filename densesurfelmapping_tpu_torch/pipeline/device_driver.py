@@ -314,8 +314,8 @@ class ShardedDeviceResidentMapping(DeviceResidentMapping):
     splits the superpixel/plane-fit stage by image columns over the shards
     (`parallel/frame_sharding.py`); the map is the same either way.  Stats
     stay on the device; the bank's count is read only by the readouts.  On
-    a mesh over several cards the programs run as the eager mesh programs
-    (`graphed` False)."""
+    a mesh over several cards each program is one graph over every card
+    (`fuse_step.capture`), its memory in one pool per card."""
 
     def __init__(self, config: SurfelMapConfig, mesh,
                  kitti_alignment: bool = False, frame_sharded: bool = False):

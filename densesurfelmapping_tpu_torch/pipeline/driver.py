@@ -93,8 +93,10 @@ class SurfelMapping:
         # the captured programs (`_build_graphs`): the per-frame steps share
         # one memory pool and the bank programs another, so no bank
         # program's replay overwrites the stats a step left for sync_stats
-        self._graph_pool = fuse_step.graph_pool(self.device)
-        self._bank_pool = fuse_step.graph_pool(self.device)
+        # (one pool per card of the bank: the sharded drivers' meshes)
+        cards = fuse_step.devices_of(self.bank)
+        self._graph_pool = fuse_step.graph_pool(cards)
+        self._bank_pool = fuse_step.graph_pool(cards)
         self._fuse_graph = self._stereo_graph = None
         self._compact_graph = self._append_graph = None
         self._extract_graph = self._warp_graph = None
@@ -112,9 +114,9 @@ class SurfelMapping:
 
     @property
     def graphed(self) -> bool:
-        """Whether the driver's programs replay captured CUDA graphs: on a
-        card, except over a mesh that spans several cards, which keeps its
-        eager mesh programs (`parallel.sharding.graphed_mesh`)."""
+        """Whether the driver's programs replay captured CUDA graphs: on
+        one card or a mesh of cards (`parallel.sharding.graphed_mesh`),
+        not on the CPU."""
         return self._fuse_graph.graphed
 
     def _build_graphs(self) -> None:

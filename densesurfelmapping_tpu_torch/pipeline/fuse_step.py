@@ -16,6 +16,7 @@ extract, the loop warps), they replay it captured the same way
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Tuple
@@ -337,18 +338,14 @@ def fuse_frames_looped(config: SurfelMapConfig, n_loops: int,
 CAPTURES = {"steps": 0, "programs": 0}
 
 
-def _banks_of(target) -> list:
-    """The SurfelBanks of a graph's target: one bank, or every (stream,
-    shard) bank of a `parallel.sharding.ShardedBanks`."""
+def devices_of(target) -> list:
+    """The devices of a graph's target, the home first: one bank's, or
+    the distinct devices of a `parallel.sharding.ShardedBanks` in (stream,
+    shard) order, whose home is the home cell (stream 0's first shard),
+    where the graph keeps its static inputs and is replayed."""
     if isinstance(target, SurfelBank):
-        return [target]
-    return [b for row in target.shards for b in row]
-
-
-def home_device(target) -> torch.device:
-    """Where a graph over `target` keeps its static inputs: the bank's
-    device, or a mesh's home cell (stream 0's first shard)."""
-    return _banks_of(target)[0].device
+        return [target.device]
+    return target.devices()
 
 
 def _clone(bank: SurfelBank) -> SurfelBank:
@@ -366,12 +363,12 @@ def _scratch(target):
 
 def capture(bank, body: Callable[[object], object], pool=None,
             reset: Callable[[], None] | None = None, kind: str = "steps",
-            device: torch.device | None = None):
+            devices=None):
     """Capture body(bank) into a `torch.cuda.CUDAGraph`: returns (graph,
     what the captured call returned, its tensors now the graph's static
-    outputs).  `bank` is a SurfelBank, a mesh's `ShardedBanks` whose
-    shards all live on one card, or None for a program without a bank
-    (then `device` names the card).
+    outputs).  `bank` is a SurfelBank, a mesh's `ShardedBanks` (on one
+    card or several), or None for a program without a bank (then
+    `devices` names its cards, the home first).
 
     body(scratch) runs once first, on a side stream, against a clone of
     the bank(s): every lazily built object (geometry planes, library
@@ -382,47 +379,80 @@ def capture(bank, body: Callable[[object], object], pool=None,
     capture runs in "thread_local" mode: the drivers' worker threads (the
     pack worker, the fleet's pipelined rounds, pinned allocations on the
     main thread) may call CUDA while it runs, and only this thread is
-    barred from calls that a capture forbids.  `pool` (`graph_pool`)
-    shares one memory pool between the graphs of a driver; `kind` is the
-    CAPTURES entry the capture counts in.
+    barred from calls that a capture forbids.  `pool` (`graph_pool`: one
+    `torch.cuda.MemPool` per card) shares the memory of a driver's graphs;
+    `kind` is the CAPTURES entry the capture counts in.
 
-    One graph captures one card's stream: a mesh whose shards span several
-    cards would need one graph per card, joined by events, which is not
-    built, so such a target raises here (its drivers keep the eager mesh
-    programs, `BankGraph(graphed=False)`)."""
-    if bank is not None:
-        devs = {b.device for b in _banks_of(bank)}
-        if len(devs) != 1:
-            raise ValueError(f"one graph per device: the target spans "
-                             f"{sorted(map(str, devs))}")
-        device = home_device(bank)
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"a CUDA graph needs a CUDA bank, got {dev}")
+    A target over several cards is one capture over all of them: the
+    capture stream is on the home card, the body forks work to the other
+    cards' streams and joins it back (`parallel.sharding.mesh_program`),
+    and every card's allocations while it runs go to that card's pool
+    (`capture_pools`), so `pool` must hold one for each card.  The warm-up
+    clones each bank on its own card."""
+    devs = devices_of(bank) if bank is not None else \
+        [torch.device(d) for d in devices]
+    home = devs[0]
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"a CUDA graph needs CUDA banks, got "
+                         f"{[str(d) for d in devs]}")
+    missing = [str(d) for d in devs[1:] if pool is None or d not in pool]
+    if missing:
+        raise ValueError(f"a capture over several cards needs a memory "
+                         f"pool on each, none for {missing}")
     scratch = None if bank is None else _scratch(bank)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
+    side = torch.cuda.Stream(home)
+    side.wait_stream(torch.cuda.current_stream(home))
     with torch.cuda.stream(side):
         body(scratch)
-    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.current_stream(home).wait_stream(side)
     del scratch
     if reset is not None:
         reset()
+    for d in devs[1:]:      # torch.cuda.graph synchronises the home card
+        torch.cuda.synchronize(d)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=None if pool is None else pool.id,
-                          capture_error_mode="thread_local"):
+    with torch.cuda.device(home), torch.cuda.graph(
+            graph, pool=None if pool is None else pool[home].id,
+            stream=torch.cuda.Stream(home),
+            capture_error_mode="thread_local"), \
+            capture_pools(pool, devs[1:]):
         out = body(bank)
     CAPTURES[kind] += 1
     return graph, out
 
 
-def graph_pool(device: torch.device):
-    """The memory pool a driver's captured steps share, or None off the
-    card.  A `torch.cuda.MemPool` holds its pool open for as long as the
-    driver keeps it: a pool from `torch.cuda.graph_pool_handle()` closes
-    when its last graph is freed, and capturing the next graph into it
-    fails (a recapture frees the graph it replaces)."""
-    return torch.cuda.MemPool() if device.type == "cuda" else None
+@contextlib.contextmanager
+def capture_pools(pool, devices):
+    """While a capture on the home card runs: this thread's allocations on
+    each other card of `devices` go to that card's pool (`pool[d]`), where
+    the graph keeps them, and the card's allocator knows a capture is
+    under way (it then defers the reuse of blocks other streams used)."""
+    with contextlib.ExitStack() as stack:
+        for d in devices:
+            stack.enter_context(torch.cuda.use_mem_pool(pool[d], d))
+        yield
+
+
+def graph_pool(devices):
+    """The memory pools a driver's captured graphs share: {card: a
+    `torch.cuda.MemPool` created under that card} for a device or a list
+    of devices (a mesh's), or None off the card.  A MemPool holds its
+    pool open for as long as the driver keeps it: a pool from
+    `torch.cuda.graph_pool_handle()` closes when its last graph is freed,
+    and capturing the next graph into it fails (a recapture frees the
+    graph it replaces)."""
+    devs = [torch.device(devices)] if isinstance(devices, (str,
+                                                           torch.device)) \
+        else [torch.device(d) for d in devices]
+    if devs[0].type != "cuda":
+        return None
+    pools = {}
+    for d in devs:
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        with torch.cuda.device(d):
+            pools[d] = torch.cuda.MemPool()
+    return pools
 
 
 class LapGraph:
@@ -480,37 +510,38 @@ class BankGraph:
     `parallel/sharding.py` and `parallel/frame_sharding.py`).
 
     `fn(bank, *inputs)` is the eager program.  The object owns one static
-    input per argument (`specs`: (shape, dtype) each) on the bank's device
-    (a mesh's home cell, `home_device`; `device` for a program without a
-    bank, bank None: the sharded SGM), the bank(s) it was captured
-    against (written in place, so their tensors keep their addresses), and
-    what the captured call returned: static outputs, which the next replay
-    overwrites, and so may the replay of a graph captured earlier into the
-    same pool (its freed intermediates are the later graph's to reuse):
-    read them before either.  `keep` holds whatever else the graph reads
-    and must outlive it.
+    input per argument (`specs`: (shape, dtype) each) on the home device
+    (`devices_of`: the bank's, or a mesh's home cell; for a program
+    without a bank, bank None, `devices[0]`: the sharded SGM), the
+    bank(s) it was captured against (written in place, so their tensors
+    keep their addresses), and what the captured call returned: static
+    outputs, which the next replay overwrites, and so may the replay of a
+    graph captured earlier into the same pool (its freed intermediates
+    are the later graph's to reuse): read them before either.  `keep`
+    holds whatever else the graph reads and must outlive it.
 
     `load(*args)` copies the arguments (host arrays or tensors) into the
     static inputs without blocking the host; `replay()` captures `fn` at
     its first call (`capture`: a warm-up on a scratch clone of the bank,
     then the capture, which synchronises like a jit's first call) and
-    enqueues one replay; `__call__(*args)` does both and returns the
-    outputs.  `graphed` (default: the bank is on a card) is decided when
-    the object is built: when False the same object runs `fn` eagerly
-    through the same static inputs, as it does on a CPU bank and, by the
-    mesh factories' choice, over a mesh that spans several cards
+    enqueues one replay on the home card's current stream, ordered after
+    the other cards' current streams and before their later work;
+    `__call__(*args)` does both and returns the outputs.  `graphed`
+    (default: the home device is a card) is decided when the object is
+    built: when False the same object runs `fn` eagerly through the same
+    static inputs, as it does on a CPU bank or mesh
     (`parallel.sharding.graphed_mesh`).  A graphed object captures or
     raises."""
 
     kind = "programs"   # its CAPTURES entry
 
     def __init__(self, fn: Callable, bank, specs=(), pool=None, keep=(),
-                 graphed: bool | None = None,
-                 device: torch.device | None = None):
+                 graphed: bool | None = None, devices=None):
         self.fn = fn
         self.bank = bank
-        self.device = (home_device(bank) if bank is not None
-                       else torch.device(device))
+        self.devices = (devices_of(bank) if bank is not None
+                        else [torch.device(d) for d in devices])
+        self.device = self.devices[0]
         self.inputs = tuple(torch.zeros(shape, dtype=dtype,
                                         device=self.device)
                             for shape, dtype in specs)
@@ -534,9 +565,16 @@ class BankGraph:
             t0 = time.perf_counter()
             self.graph, self.out = capture(
                 self.bank, lambda b: self.fn(b, *self.inputs), self.pool,
-                kind=self.kind, device=self.device)
+                kind=self.kind, devices=self.devices)
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
-        self.graph.replay()
+        main = torch.cuda.current_stream(self.device)
+        others = [torch.cuda.current_stream(d) for d in self.devices[1:]]
+        for st in others:
+            main.wait_stream(st)
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        for st in others:
+            st.wait_stream(main)
         self.replays += 1
         return self.out
 

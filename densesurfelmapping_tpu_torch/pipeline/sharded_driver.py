@@ -5,8 +5,8 @@ host orchestration as `SurfelMapping` (pose graph, sync buffers, inactive
 pool, export, checkpoint), with the active bank split in row slabs over the
 mesh's "surfel" axis: the fuse step, compaction, migration extract,
 re-activation appends and loop-closure warps run on every shard
-(`parallel/sharding.py`), each replayed from a captured graph on one card.
-One host process drives the whole mesh.
+(`parallel/sharding.py`), each replayed from a captured graph over the
+mesh's cards.  One host process drives the whole mesh.
 
 What it is for: maps whose active window outgrows one card's memory
 (capacity scales with the mesh); on one card the shards are virtual and
@@ -61,9 +61,10 @@ class ShardedSurfelMapping(SurfelMapping):
     upload (the planes and the 72-byte aux head in one pinned copy per
     frame; there is no compact mesh step) and the stereo step in one
     memory pool, compaction, the migration extract and append and the
-    active warp in another, each captured at its first use and rebuilt
-    where the dense driver rebuilds its graphs.  On a mesh over several
-    cards they run as the eager mesh programs (`graphed` False)."""
+    active warp in another (one MemPool per card each), each captured at
+    its first use and rebuilt where the dense driver rebuilds its graphs.
+    The host reads each card's counts only in `_bank_count` and
+    `_extract_chunk` (and the readouts)."""
 
     def __init__(self, config: SurfelMapConfig, mesh,
                  kitti_alignment: bool = False):

@@ -601,16 +601,16 @@ def test_checkpoint_load_and_enable_stereo_rebuild_the_mesh_graphs(
 
 
 # ---------------------------------------------------------------------------
-# several devices: the explicit eager branch
+# several devices: graphed on cards, eager on the CPU
 # ---------------------------------------------------------------------------
 def test_mesh_over_several_devices_keeps_the_eager_programs():
-    """A mesh over two cards is not graphed (one graph per card joined by
-    events has never run), one card repeated is; a driver on a mesh of two
-    devices builds its graph objects on the eager branch and runs the
-    chain through them."""
+    """A mesh over two cards is graphed as one card repeated is (one
+    capture spans the cards); a CPU mesh over two devices keeps the eager
+    programs: a driver on it builds its graph objects on the eager branch
+    and runs the chain through them."""
     two = tsh.Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]])
     one = tsh.Mesh([[torch.device("cuda", 0)] * 2])
-    assert not tsh.graphed_mesh(two) and tsh.graphed_mesh(one)
+    assert tsh.graphed_mesh(two) and tsh.graphed_mesh(one)
     m = tsh.make_mesh(2, devices=["cpu:0", "cpu:1"])
     assert len(m.devices()) == 2 and not tsh.graphed_mesh(m)
     drv = ShardedSurfelMapping(CFG, m)
@@ -622,11 +622,21 @@ def test_mesh_over_several_devices_keeps_the_eager_programs():
 
 
 def test_capture_refuses_a_target_over_several_devices():
-    """fuse_step.capture makes one graph per device: banks on two devices
-    raise before anything runs."""
+    """fuse_step.capture takes banks over several cards as one capture,
+    but refuses, before anything runs, banks off the cards (here on two
+    devices, cpu and meta); the plan for banks on two cards: the home
+    card cuda:0 holds the capture stream and the graph's pool, cuda:1 its
+    lane and a MemPool routed by use_mem_pool, each card one cell."""
     banks = tsh.ShardedBanks([[SurfelBank.empty(8, "cpu"),
                                SurfelBank.empty(8, "meta")]])
+    assert [d.type for d in tfs.devices_of(banks)] == ["cpu", "meta"]
     ran = []
-    with pytest.raises(ValueError, match="one graph per device"):
+    with pytest.raises(ValueError, match="needs CUDA banks"):
         tfs.capture(banks, ran.append)
     assert not ran
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    plan = tsh.capture_plan(tsh.Mesh([[c0, c1]]))
+    assert plan["graphed"] and plan["home"] == c0
+    assert plan["cards"] == {
+        c0: dict(lane="capture", pool="graph", cells=[(0, 0)], streams=[1]),
+        c1: dict(lane=0, pool="use_mem_pool", cells=[(0, 1)], streams=[1])}
