@@ -1012,29 +1012,57 @@ def device_record_names(prof) -> list:
     return [(e.device_index(), e.name()) for e in raw_device_records(prof)]
 
 
+class Records(list):
+    """(card, name) of a window's device records, with the window's graph
+    launches: `launches`, the host's cudaGraphLaunch records, and `lost`,
+    those of them of whose replay the profiler kept no device record at
+    all (a replay runs hundreds of operations, the kernels of the six
+    wrappers among them; every graph node's record carries its launch's
+    correlation id)."""
+    launches = 0
+    lost = 0
+
+
+def fill_records(out: Records, prof) -> None:
+    from torch.autograd import DeviceType
+    seen, graphs = set(), set()
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            out.append((e.device_index(), e.name()))
+            seen.add(e.correlation_id())
+        elif "GraphLaunch" in e.name():
+            graphs.add(e.correlation_id())
+    out.launches, out.lost = len(graphs), len(graphs - seen)
+
+
 # A counting window's edges.  The profiler keeps only the device records
 # that it finds inside its window, and when the host is busy it may drop
-# the records of whole graph replays next to an edge as out of range
-# (kineto's "Out-of-range" count), although the window synchronised on
-# them: once the records of 17 frames of a 60-frame graphed drive.  So
-# the body of a counting window starts and ends EDGE_PAD_S of host time
-# away from the window's edges.
+# the records of whole graph replays as out of range (kineto's
+# "Out-of-range" count), although the window synchronised on them: once
+# the records of 17 frames of a 60-frame graphed drive, next to an edge;
+# once, with the edges padded, those of 42 of its 60 frames.  So the body
+# of a counting window starts and ends EDGE_PAD_S of host time away from
+# the window's edges, and a window counts the graph launches whose replay
+# left no record (`Records.lost`).
 EDGE_PAD_S = 0.75
 
 
 @contextlib.contextmanager
 def device_records():
     """A profiler window over the body, which starts and ends EDGE_PAD_S
-    from the window's edges; yields a list that holds, after the block,
-    (card, name) of the body's device records (`device_record_names`)."""
+    from the window's edges; yields a `Records` that holds, after the
+    block, (card, name) of the body's device records and its graph
+    launches."""
     from torch.profiler import ProfilerActivity, profile
-    names: list = []
+    names = Records()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(EDGE_PAD_S)
         yield names
         torch.cuda.synchronize()
         time.sleep(EDGE_PAD_S)
-    names.extend(device_record_names(prof))
+    fill_records(names, prof)
 
 
 def executed(fn):
@@ -1044,10 +1072,11 @@ def executed(fn):
     "runs": each kernel's device runs by the profiler's kernel records,
     "card_runs": the same for each card, "captures": fuse steps captured,
     "programs": other bank programs captured (compaction, migration,
-    warps: no kernel of the six runs in them)}).  A captured step calls
-    each wrapper twice per capture (the warm-up and the capture itself)
-    and never again: its replays launch the kernels from the graph, and
-    only the profiler sees them."""
+    warps: no kernel of the six runs in them), "launches" / "lost": the
+    window's graph launches and those whose replay left no record}).  A
+    captured step calls each wrapper twice per capture (the warm-up and
+    the capture itself) and never again: its replays launch the kernels
+    from the graph, and only the profiler sees them."""
     from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
     with device_records() as records:
         for kind in FS.CAPTURES:
@@ -1063,7 +1092,21 @@ def executed(fn):
                      card_runs={card: runs_on(lambda c: c == card)
                                 for card in cards},
                      captures=FS.CAPTURES["steps"],
-                     programs=FS.CAPTURES["programs"])
+                     programs=FS.CAPTURES["programs"],
+                     launches=records.launches, lost=records.lost)
+
+
+def runs_floor(want: int, per_replay: int, lost: int) -> int:
+    """The fewest device runs that a count of `want` may show: a replay
+    that left no record (`Records.lost`, which also counts the bank
+    programs' replays) takes its `per_replay` runs with it, and of the
+    rest the profiler may miss a few records, near a window's edges, which
+    `device_records` keeps the body away from, and on a long window of
+    graph replays a buffer of them (on an H100, 3 of each SLIC kernel's 93
+    in a 30-pair stereo drive, none in 6-pair drives): up to 5% (at least
+    2), none extra."""
+    left = want - per_replay * lost
+    return max(left - max(2, left // 20), 0)
 
 
 def check_runs(ex: dict, per: dict, steps: int, what: str,
@@ -1073,22 +1116,24 @@ def check_runs(ex: dict, per: dict, steps: int, what: str,
     a step, so its wrapper was called per[k] (2 captures + eager) times
     and it ran per[k] (steps + captures + eager) times (a capture's
     warm-up runs, the capture itself does not).  The wrapper count is
-    exact; of the device runs the profiler may miss a few records: near a
-    window's edges, which `device_records` keeps the body away from, and
-    on a long window of graph replays a buffer of them (on an H100, 3 of
-    each SLIC kernel's 93 in a 30-pair stereo drive, none in 6-pair
-    drives), so up to 5% (at least 2) may be missing, none extra.
-    That every replay ran every kernel is shown by the graphed map's
-    equality with the eager one (the `graph` phase)."""
-    c = ex["captures"]
+    exact; the device runs are bounded by `runs_floor`, and a kernel of
+    the run shows at least one.  That every replay ran every kernel is
+    shown by the graphed map's equality with the eager one (the `graph`
+    phase)."""
+    c, lost = ex["captures"], ex["lost"]
+    require(steps == 0 or lost < ex["launches"],
+            f"{what}: {ex['launches']} graph launches, none of whose "
+            f"replays left a device record")
     for k, n in per.items():
         calls, runs = n * (2 * c + eager), n * (steps + c + eager)
-        slack = max(2, runs // 20)
         require(ex["calls"][k] == calls
-                and max(runs - slack, 0) <= ex["runs"][k] <= runs,
+                and max(runs_floor(runs, n, lost), min(n, 1))
+                <= ex["runs"][k] <= runs,
                 f"{what}: {k} wrapper calls {ex['calls'][k]} (want "
                 f"{calls}), device runs {ex['runs'][k]} (want {runs}; "
-                f"{steps} replays, {c} captures, {eager} eager steps)")
+                f"{steps} replays, {c} captures, {eager} eager steps; "
+                f"{ex['launches']} graph launches, {lost} of them left no "
+                f"device record)")
 
 
 @functools.lru_cache(maxsize=1)
@@ -3647,7 +3692,8 @@ def multicard_checks(n_cards: int, frames, pairs) -> dict:
                 got = ex["card_runs"].get(card, {})
                 for k, v in per_cell[kind].items():
                     want = v * cells_here * (steps + 1)
-                    require(max(want - max(2, want // 20), 0)
+                    require(max(runs_floor(want, v * cells_here,
+                                           ex["lost"]), min(v, 1))
                             <= got.get(k, 0) <= want,
                             f"{label} {kind}: cuda:{card} ran {k} "
                             f"{got.get(k, 0)} times, want {want} "
@@ -3900,7 +3946,8 @@ def main() -> None:
         add(ex["runs"])
         say("drive", f"kernel launches in the drive: wrapper calls "
             f"{ex['calls']}, device runs {ex['runs']} (profiler kernel "
-            f"records), {ex['captures']} graph captured")
+            f"records), {ex['captures']} graph captured, {ex['launches']} "
+            f"graph launches ({ex['lost']} left no device record)")
         require(ex["captures"] == 1 and drv.frames_fused == N_FRAMES,
                 f"depth-fed drive: {ex['captures']} captures, "
                 f"{drv.frames_fused} frames")
