@@ -54,7 +54,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
                of 4 distinct KITTI frames (and 3 frames of 120 x 56 at sp 6
                and 16) one launch for all streams, each stream equal to the
                single-frame kernel (torch.equal) and to the plain twin;
-               device us per launch at B = 1 and B = 4
+               device us per launch at B = 1 and B = 4; then B4-B6 with the
+               stream axis on 4 KITTI pairs and a 61 x 97 crop of 3 (8 and
+               4 paths, f32 and bf16 carries, B4 on the census volumes):
+               one launch for all streams, each stream torch.equal to the
+               single-stream kernel and the twin, the wrappers under
+               torch.func.vmap equal to the batched call; device us per
+               launch at B = 1 and B = 4
  10. multi   - MultiSessionMapping, 4 streams at the CLI's width (capacity
                2^21) over 24 rounds under the sync check: each SLIC kernel
                3x per round (not x B), no NaN, compaction, each session equal
@@ -62,12 +68,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
                session 0 moving it alone, pipelined == eager; aggregate
                frames/s at B = 1, 2, 4, device ms, ops and idle share per
                round, peak device memory
- 11. multi-stereo - the stereo fleet (--sgm), its round replayed from one
+ 11. multi-stereo - the stereo fleet (--sgm), its round (the per-stream
+               stereo step under torch.func.vmap) replayed from one
                captured graph, at 2 and 4 streams x 8 rounds: each session
-               torch.equal to the eager fleet's, B5/B6 once per stream and
-               round and B1-B3 3x per round (profiler records), at B = 2
-               equal to solo stereo drives (1e-4 m); aggregate frames/s
-               graphed vs eager, graph pool and peak memory
+               torch.equal to the eager fleet's, B5/B6 once per round for
+               all streams and B1-B3 3x per round (profiler records), at B
+               = 2 equal to solo stereo drives (1e-4 m); aggregate frames/s
+               graphed vs eager, graph pool and peak memory; the
+               materialized branch at B = 2 (B4 2x per round, graphed ==
+               eager)
  12. batch   - fuse_frames_scan over 8 KITTI frames against 8 eager steps
                (torch.equal); fuse_frames_looped (K = 8, 8 laps: one lap
                captured in a CUDA graph and replayed) against the eager
@@ -1555,10 +1564,10 @@ def phase_cli(device, drive_frames) -> dict:
     require(rc == 0, f"multi --stereo: rc {rc}")
     require(ex["captures"] == 1, f"multi --stereo: {ex['captures']} "
             f"captures")
-    check_runs(ex, dict(sgm_census_x=2, sgm_census_y=2, sgm_axis_scan=0,
+    check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1, sgm_axis_scan=0,
                         **{k: cfg.sp_iters for k in SLIC}), 8,
-               "multi --stereo --sgm (B5/B6 once per stream and SLIC "
-               f"{cfg.sp_iters}x per round, 8 rounds of 2 streams)")
+               "multi --stereo --sgm (B5/B6 once and SLIC "
+               f"{cfg.sp_iters}x per round for both streams, 8 rounds)")
     for k in range(2):
         require(int(np.load(f"{ms}_s{k}.ckpt.npz")["bank_count"]) > 0,
                 f"multi --stereo: session {k}'s map is empty")
@@ -1681,12 +1690,14 @@ def stacked(seeds, name):
 
 
 def one_launch(name, fn):
-    """fn() with kernel `name` launched exactly once for all streams."""
-    from densesurfelmapping_tpu_torch.ops.cuda import slic as K
-    n0 = K.LAUNCHES[name]
+    """fn() with kernel `name` (SLIC or SGM) launched exactly once for all
+    streams."""
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm, slic
+    counts = (slic if name in slic.LAUNCHES else sgm).LAUNCHES
+    n0 = counts[name]
     out = fn()
-    require(K.LAUNCHES[name] - n0 == 1, f"{name}: a batched call launched "
-            f"{K.LAUNCHES[name] - n0} times")
+    require(counts[name] - n0 == 1, f"{name}: a batched call launched "
+            f"{counts[name] - n0} times")
     return out
 
 
@@ -1806,6 +1817,188 @@ def phase_multi_kernels(device, records: dict) -> dict:
             f"ops a call, wrapper host {tb['host_us']:.1f} us; bound at B = "
             f"{N_STREAMS} {1e3 * b['bound_ms']:.2f} us ({b['bound_by']})")
     return out
+
+# the stream axis of each SGM kernel (the summary's "batched" route)
+SGM_STREAM_ROUTES = {
+    "sgm_census_x": "grid y = stream",
+    "sgm_census_y": "2 nbands blocks (one per SM) walk the streams",
+    "sgm_axis_scan": "line kernel grid y = stream; band kernel's blocks walk "
+                     "the streams",
+}
+
+
+def check_multi_sgm(tag, cl, cr, min_d: int, n_d: int) -> None:
+    """B6, B5 (8 and 4 paths) and B4 (x family, y family of 8 and 4 paths,
+    on the materialized census volumes) with a leading stream axis, f32 and
+    bf16 carries: one launch for all streams, each stream torch.equal to
+    the single-stream kernel and to the plain twin; the wrappers under
+    torch.func.vmap (the fleet's round) equal the explicit batched call."""
+    from densesurfelmapping_tpu_torch.models import stereo as S
+    from densesurfelmapping_tpu_torch.ops import sgm as P
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as K
+    scfg = sgm_config()
+    p1, p2 = scfg.sgm_p1, scfg.sgm_p2
+    n = cl.shape[0]
+
+    def same(what, a, b):
+        require(a.shape == b.shape and bool(torch.equal(a, b)),
+                f"{what} ({tag}): differs (max abs err "
+                f"{float((a - b).abs().max())})")
+
+    for bf16 in (False, True):
+        kx = one_launch("sgm_census_x", lambda: K.census_x(
+            cl, cr, p1, p2, min_d, n_d, bf16))
+        for k in range(n):
+            same(f"sgm_census_x stream {k} bf16={bf16} vs single",
+                 kx[k], K.census_x(cl[k], cr[k], p1, p2, min_d, n_d, bf16))
+            same(f"sgm_census_x stream {k} bf16={bf16} vs twin", kx[k],
+                 P.census_x_family(cl[k], cr[k], p1, p2, min_d, n_d, bf16))
+        for v_rolls in ((0, 1, -1), (0,)):
+            ky = one_launch("sgm_census_y", lambda: K.census_y(
+                cl, cr, torch.zeros_like(kx), v_rolls, p1, p2, min_d, bf16))
+            for k in range(n):
+                same(f"sgm_census_y {v_rolls} stream {k} bf16={bf16} vs "
+                     f"single", ky[k], K.census_y(
+                         cl[k], cr[k], torch.zeros_like(kx[k]), v_rolls, p1,
+                         p2, min_d, bf16))
+                same(f"sgm_census_y {v_rolls} stream {k} bf16={bf16} vs "
+                     f"twin", ky[k], P.census_y_family(
+                         cl[k], cr[k], v_rolls, p1, p2, min_d, n_d, bf16))
+            agg = functools.partial(K.census_aggregate, v_rolls=v_rolls,
+                                    p1=p1, p2=p2, min_d=min_d, n_d=n_d,
+                                    carry_bf16=bf16)
+            vm = one_launch("sgm_census_y", lambda: one_launch(
+                "sgm_census_x", lambda: torch.func.vmap(agg)(cl, cr)))
+            same(f"census_aggregate {v_rolls} bf16={bf16} under vmap", vm,
+                 kx + ky)
+            # census_y under vmap adds into the batched out in place
+            out = kx.clone()
+            vy = one_launch("sgm_census_y", lambda: torch.func.vmap(
+                lambda a, b, o: K.census_y(a, b, o, v_rolls, p1, p2, min_d,
+                                           bf16))(cl, cr, out))
+            same(f"census_y {v_rolls} bf16={bf16} under vmap", vy, vm)
+            same(f"census_y {v_rolls} bf16={bf16} under vmap, in place",
+                 out, vm)
+    say("multi-kernels", f"sgm_census_x (B6) and sgm_census_y (B5, 8 and 4 "
+        f"paths) on {tag}: one launch for the {n} streams, each stream "
+        f"torch.equal to the single-stream kernel and the twin, f32 and bf16 "
+        f"carries; census_aggregate under torch.func.vmap == the batched "
+        f"call")
+    vols = torch.stack([S._census_volume(cl[k], cr[k], min_d, n_d)
+                        for k in range(n)])
+    vx = vols.permute(0, 3, 2, 1).contiguous()     # scan over x
+    vy = vols.permute(0, 2, 3, 1).contiguous()     # scan over y
+    del vols
+    for bf16 in (False, True):
+        for v, r, e in ((vx, (0,), "x"), (vy, (0, 1, -1), "y"),
+                        (vy, (0,), "y")):
+            kb = one_launch("sgm_axis_scan", lambda: K.axis_scan(
+                v, r, p1, p2, bf16, e, min_d))
+            for k in range(n):
+                # a stream's volume on its own, 16-byte aligned for the
+                # single-stream launch
+                one = v[k].clone()
+                same(f"sgm_axis_scan {e} {r} stream {k} bf16={bf16} vs "
+                     f"single", kb[k], K.axis_scan(one, r, p1, p2, bf16, e,
+                                                   min_d))
+                same(f"sgm_axis_scan {e} {r} stream {k} bf16={bf16} vs "
+                     f"twin", kb[k], P.axis_scan(one, r, p1, p2, bf16, e,
+                                                 min_d))
+            vm = one_launch("sgm_axis_scan", lambda: torch.func.vmap(
+                functools.partial(K.axis_scan, rolls=r, p1=p1, p2=p2,
+                                  carry_bf16=bf16, entry=e,
+                                  min_d=min_d))(v))
+            same(f"sgm_axis_scan {e} {r} bf16={bf16} under vmap", vm, kb)
+    say("multi-kernels", f"sgm_axis_scan (B4) on {tag}'s census volumes: x "
+        f"family, y family of 8 and 4 paths, one launch for the {n} "
+        f"streams, each stream torch.equal to the single-stream kernel and "
+        f"the twin, f32 and bf16 carries; under torch.func.vmap == the "
+        f"batched call")
+
+
+def phase_multi_sgm(device) -> dict:
+    """B4-B6 with the stream axis: the checks of check_multi_sgm on
+    N_STREAMS KITTI pairs (n_d 127 from 1) and on a 61 x 97 crop of 3 of
+    them (n_d 37 from 3), then device us per launch at B = 1 and B =
+    N_STREAMS (kernel_time; B4's two families apart, the record their
+    mean) beside the bound at B streams (B x one frame's bytes and
+    operations), the wrapper's host us and the device operations of a
+    call.  Returns {kernel: batched record}."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.models import stereo as S
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as K
+    cfg = kitti_config()
+    scfg = sgm_config()
+    census = []
+    for pose in synthetic.forward_trajectory(N_STREAMS, step=0.4):
+        li, ri, _ = stereo_pair(cfg, pose)
+        census.append([S._census(torch.from_numpy(x).to(device).float(),
+                                 scfg.census_radius) for x in (li, ri)])
+    cl = torch.stack([c[0] for c in census])
+    cr = torch.stack([c[1] for c in census])
+    min_d = scfg.min_disparity
+    n_d = scfg.max_disparity - min_d
+    p1, p2 = scfg.sgm_p1, scfg.sgm_p2
+    check_multi_sgm(f"{N_STREAMS} KITTI pairs", cl, cr, min_d, n_d)
+    crop = (slice(0, 3), slice(150, 211), slice(300, 397))     # 61 x 97
+    check_multi_sgm("a 61 x 97 crop of 3 pairs", cl[crop].contiguous(),
+                    cr[crop].contiguous(), 3, 37)
+
+    h, w = cl.shape[-2:]
+    cells = n_d * h * w
+    census_bytes = 2 * h * w * 4
+    rolls = (0, 1, -1)
+    vols = torch.stack([S._census_volume(cl[k], cr[k], min_d, n_d)
+                        for k in range(N_STREAMS)])
+    scans = {"x": (vols.permute(0, 3, 2, 1).contiguous(), (0,),
+                   "axis_line_kernel"),
+             "y": (vols.permute(0, 2, 3, 1).contiguous(), rolls,
+                   "axis_band_kernel")}
+    del vols
+    buf = torch.zeros((N_STREAMS, n_d, h, w), dtype=torch.float32,
+                      device=device)
+    # (call of b streams, kernel records, one frame's bytes and operations,
+    # as phase_sgm_kernels counts them)
+    calls = {
+        "sgm_census_x": (lambda b: K.census_x(cl[:b], cr[:b], p1, p2, min_d,
+                                              n_d), ("census_x_kernel",),
+                         (census_bytes + cells * 4, 2 * cells * 10)),
+        "sgm_census_y": (lambda b: K.census_y(cl[:b], cr[:b], buf[:b],
+                                              rolls, p1, p2, min_d),
+                         ("census_y_kernel",),
+                         (census_bytes + 2 * cells * 4, 6 * cells * 10)),
+    }
+    for e, (v, r, kname) in scans.items():
+        calls[f"sgm_axis_scan {e}"] = (
+            lambda b, v=v, r=r, e=e: K.axis_scan(v[:b], r, p1, p2, False, e,
+                                                 min_d),
+            (kname,), (cells * 2 + cells * 4, 2 * len(r) * cells * 10))
+    times = {}
+    for name, (call, kernels, one_frame) in calls.items():
+        # 50 calls, up to 10 uncounted, as for B1-B3 above: the profiler
+        # kept 16 of 20 records of B6 at B = 1 in three windows in a row
+        # once (H100)
+        t1 = kernel_time(lambda: call(1), kernels, reps=50, drop=10)
+        tb = kernel_time(lambda: call(N_STREAMS), kernels, reps=50, drop=10)
+        b = bound(*(N_STREAMS * x for x in one_frame))
+        times[name] = dict(us_1=t1["us"], us_n=tb["us"],
+                           us_n_min=tb["us_min"], us_n_max=tb["us_max"],
+                           ops_n=tb["ops"], host_us_n=tb["host_us"], **b)
+        say("multi-kernels", f"{name}: device {t1['us']:.2f} us/launch at "
+            f"B = 1, {tb['us']:.2f} us/launch at B = {N_STREAMS} (min "
+            f"{tb['us_min']:.2f}, max {tb['us_max']:.2f}; "
+            f"{tb['us'] / N_STREAMS:.2f} us a stream), {tb['ops']:.2f} device "
+            f"ops a call, wrapper host {tb['host_us']:.1f} us; bound at B = "
+            f"{N_STREAMS} {1e3 * b['bound_ms']:.2f} us ({b['bound_by']})")
+    fx, fy = times.pop("sgm_axis_scan x"), times.pop("sgm_axis_scan y")
+    times["sgm_axis_scan"] = dict(
+        {k: (fx[k] + fy[k]) / 2 for k in fx if k != "bound_by"},
+        bound_by=("bytes" if fx["bound_by"] == fy["bound_by"] == "bytes"
+                  else "operations"))
+    return {name: dict(t, streams=N_STREAMS, max_abs_err=0.0,
+                       route=SGM_STREAM_ROUTES[name])
+            for name, t in times.items()}
 
 
 def fleet_rows(multi, k: int) -> dict:
@@ -1985,25 +2178,32 @@ def phase_multi(device, frames, smi: str) -> dict:
     return dict(launches=ex["runs"], rates=rates)
 
 
-def drive_stereo_fleet(config, pairs, device, n_streams: int, rounds: int,
-                       sync_checked: bool = False, cls=None) -> tuple:
-    """A stereo MultiSessionMapping (or `cls`) with the CLI's --sgm matcher
-    over `rounds` rounds: stream k fuses pairs k, k + 1, ... (keyframe every
-    2nd round); the first round (its capture), then the steady rounds under
-    the sync check if asked.  Returns (fleet, aggregate frames/s of the
-    steady rounds)."""
-    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
-        MultiSessionMapping)
-    multi = (cls or MultiSessionMapping)(config, n_streams, device=device)
-    multi.enable_stereo(bf=config.camera.fx * BASELINE_M,
-                        stereo_config=sgm_config())
-
+def stereo_round(multi, pairs, n_streams: int):
+    """round_(i): stream k of a stereo fleet fuses pair k + i (keyframe
+    every 2nd round)."""
     def round_(i):
         for k in range(n_streams):
             li, ri, _, pose = pairs[k + i]
             multi.feed_pose(k, float(i), pose, is_keyframe=(i % 2 == 0))
             multi.feed_stereo(k, float(i), li, ri)
         multi.step()
+    return round_
+
+
+def drive_stereo_fleet(config, pairs, device, n_streams: int, rounds: int,
+                       sync_checked: bool = False, cls=None,
+                       scfg=None) -> tuple:
+    """A stereo MultiSessionMapping (or `cls`) with the CLI's --sgm matcher
+    (or `scfg`) over `rounds` rounds: stream k fuses pairs k, k + 1, ...
+    (keyframe every 2nd round); the first round (its capture), then the
+    steady rounds under the sync check if asked.  Returns (fleet, aggregate
+    frames/s of the steady rounds)."""
+    from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+        MultiSessionMapping)
+    multi = (cls or MultiSessionMapping)(config, n_streams, device=device)
+    multi.enable_stereo(bf=config.camera.fx * BASELINE_M,
+                        stereo_config=scfg or sgm_config())
+    round_ = stereo_round(multi, pairs, n_streams)
 
     def rest():
         for i in range(1, rounds):
@@ -2019,12 +2219,17 @@ def phase_multi_stereo(device, pairs, smi: str) -> dict:
     from one captured graph (`multistream.graphed_stereo_onebuf_step`), at
     B = 2 and 4 streams x N_STEREO_ROUNDS rounds under the sync check after
     the first round: each session torch.equal to the eager fleet's
-    (`eager_classes`); B5/B6 B times and the SLIC kernels once per sweep
-    (3 times) per round, by the profiler's kernel records; at B = 2 each
-    session within 1e-4 m of a solo stereo DeviceResidentMapping.  Measures
-    aggregate frames/s graphed and eager (median of N_RATE), the capture,
-    the graph pool and the peak device memory.  Returns the device runs of
-    the kernels in its graphed drives."""
+    (`eager_classes`); B5 and B6 once per round for all streams (the
+    matcher runs under the round's vmap, as the JAX fleet's) and the SLIC
+    kernels once per sweep (3 times) per round, by the profiler's kernel
+    records; at B = 2 each session within 1e-4 m of a solo stereo
+    DeviceResidentMapping.  Then a B = 2 drive of the materialized branch
+    (`sgm_fused_census=False`): B4 twice per round (x and y family, each
+    one batched launch), graphed == eager.  Measures aggregate frames/s
+    graphed and eager (median of N_RATE), the graphed round's wall and
+    device busy ms, idle share and device operations (N_PROF rounds under
+    the profiler), the capture, the graph pool and the peak device memory.
+    Returns the device runs of the kernels in its graphed drives."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
     from densesurfelmapping_tpu_torch.parallel.multistream import stream_bank
@@ -2048,10 +2253,10 @@ def phase_multi_stereo(device, pairs, smi: str) -> dict:
             total[k] = total.get(k, 0) + v
         require(ex["captures"] == 1, f"stereo fleet B={B}: "
                 f"{ex['captures']} captures")
-        check_runs(ex, dict(sgm_census_x=B, sgm_census_y=B, sgm_axis_scan=0,
+        check_runs(ex, dict(sgm_census_x=1, sgm_census_y=1, sgm_axis_scan=0,
                             **{k: cfg.sp_iters for k in SLIC}), R,
-                   f"stereo fleet B={B} (B5/B6 once per stream, SLIC "
-                   f"{cfg.sp_iters}x per round)")
+                   f"stereo fleet B={B} (B5/B6 once for the {B} streams, "
+                   f"SLIC {cfg.sp_iters}x per round)")
         e, e_fps = drive_stereo_fleet(cfg, pairs, device, B, R,
                                       cls=EagerFleet)
         for k in range(B):
@@ -2079,14 +2284,21 @@ def phase_multi_stereo(device, pairs, smi: str) -> dict:
                     fps[name].append(drive_stereo_fleet(
                         cfg, pairs, device, B, R, cls=cls)[1])
         med = {k: sorted(v)[1] for k, v in fps.items()}
+        f = MultiSessionMapping(cfg, B, device=device)
+        f.enable_stereo(bf=cfg.camera.fx * BASELINE_M,
+                        stereo_config=sgm_config())
+        say("multi-stereo", prof_line(
+            f"B = {B} graphed, {N_PROF} rounds under the profiler after 2",
+            profiled(stereo_round(f, pairs, B), 2, N_PROF), "round"))
+        del f
         solo = (f"; each session within {max(errs):.3g} m of a solo stereo "
                 f"drive (bound {STEREO_FLEET_TOL_M})" if errs else "")
         say("multi-stereo", f"B = {B} streams x {R} rounds (2^19 rows per "
             f"stream): each session torch.equal to the eager fleet's; 1 "
             f"round capture ({capture_ms:.1f} ms, warm-up + capture, host "
-            f"clock), device runs {ex['runs']} (B5/B6 {B}x and each SLIC "
-            f"kernel {cfg.sp_iters}x per round); steady rounds raised no "
-            f"host-device sync{solo}")
+            f"clock), device runs {ex['runs']} (B5/B6 once and each SLIC "
+            f"kernel {cfg.sp_iters}x per round for the {B} streams); steady "
+            f"rounds raised no host-device sync{solo}")
         say("multi-stereo", f"B = {B}: aggregate {med['graphed']:.2f} "
             f"frames/s graphed, {med['eager']:.2f} eager (median of {N_RATE} "
             f"drives of {R} rounds, steady after the first: graphed "
@@ -2095,6 +2307,37 @@ def phase_multi_stereo(device, pairs, smi: str) -> dict:
             + f"); graph pool {held / 2**20:.1f} MiB, peak device memory "
             f"{peak:.1f} MiB above what was allocated (banks, capture and "
             f"drive; torch.cuda.max_memory_allocated) ({smi})")
+
+    # the materialized branch: B4's x and y family, each one batched
+    # launch per round
+    B = 2
+    mcfg = sgm_config()._replace(sgm_fused_census=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (g, fps), ex = executed(lambda: drive_stereo_fleet(
+        cfg, pairs, device, B, R, sync_checked=True, scfg=mcfg))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    add_runs(total, ex["runs"])
+    require(ex["captures"] == 1, f"materialized stereo fleet: "
+            f"{ex['captures']} captures")
+    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=2,
+                        **{k: cfg.sp_iters for k in SLIC}), R,
+               f"materialized stereo fleet B={B} (B4 2x, SLIC "
+               f"{cfg.sp_iters}x per round)")
+    e, _ = drive_stereo_fleet(cfg, pairs, device, B, R, cls=EagerFleet,
+                              scfg=mcfg)
+    for k in range(B):
+        require(same_banks(stream_bank(g.banks, k), stream_bank(e.banks, k)),
+                f"materialized stereo fleet: graphed session {k} != the "
+                f"eager fleet's (torch.equal)")
+    say("multi-stereo", f"materialized branch (sgm_fused_census=False), B = "
+        f"{B} x {R} rounds: each session torch.equal to the eager fleet's; "
+        f"device runs {ex['runs']} (B4 2x per round for both streams); "
+        f"{fps:.2f} frames/s graphed (one drive); peak device memory "
+        f"{peak:.1f} MiB above what was allocated ({smi})")
+    del g, e
     return total
 
 
@@ -3923,6 +4166,7 @@ def main() -> None:
     if run("multi-kernels"):
         # every kernel timing runs before the first captured graph
         batched = phase_multi_kernels(device, records)
+        batched.update(phase_multi_sgm(device))
         lap("multi-kernels")
 
     cfg = kitti_config(surfel_capacity=1 << 19, compact_interval=16)
@@ -4042,7 +4286,8 @@ def main() -> None:
             # the stream axis: one launch for the fleet's streams
             b = batched[name]
             entry["batched"] = dict(
-                route="grid z = stream", streams=b["streams"],
+                route=b.get("route", "grid z = stream"),
+                streams=b["streams"],
                 ms_1=b["us_1"] / 1e3, ms=b["us_n"] / 1e3,
                 bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                 max_abs_err=b["max_abs_err"])

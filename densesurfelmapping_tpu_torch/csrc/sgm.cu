@@ -382,6 +382,10 @@ __device__ __forceinline__ float4 bf16x4_to_float4(uint2 u) {
 // meet at mid-row: the first half of each scan stores bf16(L) to the slab,
 // the second half adds the other warp's value and writes out through a
 // staged tile, so out is written once, 128 bytes of one plane per store.
+// Stream axis (the fleet's vmapped round, one launch for B streams, as the
+// JAX package's vmap of _census_call_x gives its grid a stream axis): grid
+// (H, B), blockIdx.y the stream, each stream with its own census images,
+// out and slab, so the B x H blocks run as the H blocks of one stream do.
 // Bound on the H100: bytes.  It reads two census images (3.7 MB at KITTI size
 // 376 x 1241) and writes the f32 (127, 376, 1241) family (237 MB): 72 us at
 // 3.35 TB/s; the slab adds 119 MB written and read.  The old design (one
@@ -425,6 +429,12 @@ __global__ void __launch_bounds__(64)
                 o * kXRing * 32 + lane;
   int* cr_s = smem_x + 2 * kXTile * 128 + 2 * kXRing * 32 * 2;   // [4 q]
   int* cl_s = cr_s + 4 * q;                                      // [W]
+  // stream blockIdx.y: its census images, out and slab
+  const size_t hw = static_cast<size_t>(H) * W;
+  cl += blockIdx.y * hw;
+  cr += blockIdx.y * hw;
+  out += blockIdx.y * hw * D;
+  slab += blockIdx.y * hw * 128;
   const int y = blockIdx.x;
   const size_t row = static_cast<size_t>(y) * W;
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
@@ -541,6 +551,22 @@ size_t census_x_smem(int W) {
 // row back (consecutive threads on consecutive x of one plane).  The blocks
 // wait on each other, so the grid is a cooperative launch: all blocks
 // resident or no launch.
+// Stream axis (the fleet's vmapped round: one launch for B streams, where
+// the JAX package's vmap gives _census_call_y's grid a stream axis): the
+// grid stays 2 nbands blocks, one per SM, and each block walks the B
+// streams of its band one after another.  A split of the SMs between the
+// streams does not fit: at B = 2 a KITTI band would be 38 columns, 254,592
+// B of shared memory (census_y_plan refuses it), and B x 132 blocks of one
+// per SM cannot co-reside.  Each stream has its own census images, out and
+// slab (a slab reused in turn would let one orientation's next stream
+// overwrite totals the other still reads).  The halo ring and the rows-done
+// counters run on across the streams: a value of stream s, row t carries
+// the global row s H + t in its tag (s H + t + 1) and ring slot
+// ((s H + t) % kHaloRows), and a count of rows done is s H + t + 1, so no
+// carry of stream s - 1 reads as one of stream s and nothing is reset
+// between streams (at a stream boundary a band runs at most two global rows
+// ahead of its neighbour, since row 0 waits on no halo; the ring of four
+// still never overwrites an unread value).
 // Bound on the H100: bytes.  It reads two census images (3.7 MB) and reads
 // and writes the f32 (127, 376, 1241) output (474 MB): 143 us at 3.35 TB/s;
 // the slab adds 119 MB written and read.  The old design (one 128-thread
@@ -560,7 +586,7 @@ struct CensusY {
   // [2 o][nbands][2 side][G][kHaloRows][128] tagged carries, then the rows
   // each band has finished, [2 o][nbands] (u32); zeroed before the launch
   unsigned long long* halo;
-  int H, W, D, min_d, ncols, cpw, nbands;
+  int B, H, W, D, min_d, ncols, cpw, nbands;
   int rolls[3];
   float p1, p2;
 };
@@ -689,14 +715,22 @@ __global__ void __launch_bounds__(kYThreads, 1)
   const bool from_right = left_moving && band < nbands - 1;
   const bool to_right = right_moving && band < nbands - 1;
   const bool to_left = left_moving && band > 0;
-  auto halo_at = [&](int bnd, int side, int k, int t) {
+  // slot of global row gt = s H + t (stream s, row t) in a ring
+  auto halo_at = [&](int bnd, int side, int k, unsigned gt) {
     return a.halo +
            ((((static_cast<size_t>(o) * nbands + bnd) * 2 + side) * G + k) *
                 kHaloRows +
-            t % kHaloRows) *
+            gt % kHaloRows) *
                128 +
            4 * lane;
   };
+  // the stream the block is on, and its pointers and global row base
+  const size_t hw = static_cast<size_t>(H) * W;
+  const int* cl = a.cl;
+  const int* cr = a.cr;
+  float* out = a.out;
+  __nv_bfloat16* slab = a.slab;
+  unsigned base = 0;
   unsigned* done = reinterpret_cast<unsigned*>(
                        a.halo + static_cast<size_t>(2) * nbands * 2 * G *
                                     kHaloRows * 128) +
@@ -720,8 +754,6 @@ __global__ void __launch_bounds__(kYThreads, 1)
   const int ncolsp = ncols | 1;
   uint2* obuf = reinterpret_cast<uint2*>(census + 2 * kRows * crow);
   float* outbuf = reinterpret_cast<float*>(obuf + 4 * ncols * 32);
-  for (int i = tid; i < 2 * G * S * 128; i += nthreads)
-    state[i] = (i & 127) < D ? 0.0f : CUDART_INF_F;
   auto row_y = [&](int t) { return o == 0 ? t : H - 1 - t; };
   // chunk c of census rows (t in [c kRows, c kRows + kRows)) into buffer c & 1
   auto census_fetch = [&](int c) {
@@ -731,13 +763,13 @@ __global__ void __launch_bounds__(kYThreads, 1)
       int* dst = buf + r * crow;
       for (int e = tid; e < seglen; e += nthreads) {
         if (s0 + e >= 0 && s0 + e < W) {
-          cp_async4(dst + phase_index(e, q), a.cr + row + s0 + e);
+          cp_async4(dst + phase_index(e, q), cr + row + s0 + e);
         } else {
           dst[phase_index(e, q)] = 0;
         }
       }
       for (int e = tid; e < nb; e += nthreads)
-        cp_async4(dst + 4 * q + e, a.cl + row + x0 + e);
+        cp_async4(dst + 4 * q + e, cl + row + x0 + e);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
@@ -790,16 +822,16 @@ __global__ void __launch_bounds__(kYThreads, 1)
     const size_t r = static_cast<size_t>(row_y(s)) * W + x0;
     for (int i = tid; i < nb * 16; i += nthreads)
       cp_async16(reinterpret_cast<char*>(obuf + b * ncols * 32) + 16 * i,
-                 reinterpret_cast<const char*>(a.slab + r * 128) + 16 * i);
+                 reinterpret_cast<const char*>(slab + r * 128) + 16 * i);
     each_out([&](int d, int c) {
-      cp_async4(ob_at(b, d, c), a.out + d * plane + r + c);
+      cp_async4(ob_at(b, d, c), out + d * plane + r + c);
     });
   };
   // out's row of step s, summed, back to out
   auto writeback = [&](int s) {
     const int b = s & 3;
     const size_t r = static_cast<size_t>(row_y(s)) * W + x0;
-    each_out([&](int d, int c) { a.out[d * plane + r + c] = *ob_at(b, d, c); });
+    each_out([&](int d, int c) { out[d * plane + r + c] = *ob_at(b, d, c); });
   };
 
   // One row of one column: the census cost, the g directions' steps (the
@@ -820,9 +852,10 @@ __global__ void __launch_bounds__(kYThreads, 1)
 #pragma unroll
     for (int k = 0; k < G; ++k)
       ext[k] = (rolls[k] > 0 && in_left) || (rolls[k] < 0 && in_right);
+    const unsigned gt = base + t;   // the global row
     auto halo_in = [&](int k) {
-      return rolls[k] > 0 ? halo_at(band - 1, 0, k, t - 1)
-                          : halo_at(band + 1, 1, k, t - 1);
+      return rolls[k] > 0 ? halo_at(band - 1, 0, k, gt - 1)
+                          : halo_at(band + 1, 1, k, gt - 1);
     };
     if (halo) {
       // the carries entering from the neighbouring bands (row t - 1) go
@@ -856,11 +889,11 @@ __global__ void __launch_bounds__(kYThreads, 1)
 #pragma unroll
       for (int k = 0; k < G; ++k) {
         unsigned long long* h = nullptr;
-        if (rolls[k] > 0 && out_right) h = halo_at(band, 0, k, t);
-        if (rolls[k] < 0 && out_left) h = halo_at(band, 1, k, t);
+        if (rolls[k] > 0 && out_right) h = halo_at(band, 0, k, gt);
+        if (rolls[k] < 0 && out_left) h = halo_at(band, 1, k, gt);
         if (h != nullptr) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) store_tagged(h + j, L[k].v[j], t + 1);
+          for (int j = 0; j < 4; ++j) store_tagged(h + j, L[k].v[j], gt + 1);
         }
       }
     };
@@ -879,8 +912,7 @@ __global__ void __launch_bounds__(kYThreads, 1)
         Planes v;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          while (static_cast<unsigned>(hv[k][j] >> 32) !=
-                 static_cast<unsigned>(t))
+          while (static_cast<unsigned>(hv[k][j] >> 32) != gt)
             hv[k][j] = load_tagged(h + j);
           v.v[j] = __uint_as_float(static_cast<unsigned>(hv[k][j]));
         }
@@ -920,68 +952,82 @@ __global__ void __launch_bounds__(kYThreads, 1)
   };
   auto lane_state = [&](int cx) { return (cx + 1) * 128 + 4 * lane; };
   auto lane_slab = [&](int cx) {
-    return a.slab + (static_cast<size_t>(row_y(0)) * W + x0 + cx) * 128 +
+    return slab + (static_cast<size_t>(row_y(0)) * W + x0 + cx) * 128 +
            4 * lane;
   };
 
   Column col;
   int st = 0;
-  __nv_bfloat16* sp = nullptr;
   if (ONE) {
     col = band_column(ca, x0, D, min_d, q, lane);
     st = lane_state(ca);
-    sp = lane_slab(ca);
   }
-  census_fetch(0);
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
-  for (int t = 0; t < H; ++t) {
-    // out's row of step t - 1, summed on row t - 1, back to out; no fetch of
-    // this row touches its buffer
-    if (t - 1 >= first) writeback(t - 1);
-    if (t == first) {
-      // The meeting: wait (once) for the other scan's whole first half,
-      // which never waits on this scan, so neither can block the other;
-      // every thread acquires it.  Then this row's and the next row's
-      // fetches, complete before the row starts.
-      while (load_acquire(other_done) < static_cast<unsigned>(H - first)) {
-      }
-      prefetch(t);
-      if (t + 1 < H) prefetch(t + 1);
-      asm volatile("cp.async.commit_group;" ::: "memory");
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-      __syncthreads();
-    }
-    // one group per row (row t + 2's fetch, or none), then a census chunk
-    // every kRows rows
-    if (t + 2 > first + 1 && t + 2 < H) prefetch(t + 2);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    if (t % kRows == 0) census_fetch(t / kRows + 1);
-    const int* crow_t = census + ((t / kRows) & 1) * kRows * crow +
-                        (t % kRows) * crow;
-    const int rb = (t & 1) * GS;
-    if (ONE) {
-      if (ca < nb) column_step(t, ca, col, crow_t, rb, st, sp);
-      sp += slab_step;
-    } else {
-      for (int cx = ca; cx < cb; ++cx)
-        column_step(t, cx, band_column(cx, x0, D, min_d, q, lane), crow_t,
-                    rb, lane_state(cx), lane_slab(cx) + t * slab_step);
-    }
-    // the carries a warp reads next row were written by other warps, and
-    // so were the fetched rows: all but this row's groups are complete
-    if (t % kRows == 0) {
-      asm volatile("cp.async.wait_group 2;" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
-    }
+  for (int stream = 0; stream < a.B; ++stream) {
+    cl = a.cl + stream * hw;
+    cr = a.cr + stream * hw;
+    out = a.out + stream * hw * D;
+    slab = a.slab + stream * hw * 128;
+    base = static_cast<unsigned>(stream) * H;
+    // a fresh row state (the previous stream's reads of it ended at the
+    // barrier of its last row)
+    for (int i = tid; i < 2 * G * S * 128; i += nthreads)
+      state[i] = (i & 127) < D ? 0.0f : CUDART_INF_F;
+    __nv_bfloat16* sp = ONE ? lane_slab(ca) : nullptr;
+    census_fetch(0);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();
-    if (tid == 0) {
-      __threadfence();   // the row's slab stores before the count
-      store_relaxed(done + band, t + 1);
+    for (int t = 0; t < H; ++t) {
+      // out's row of step t - 1, summed on row t - 1, back to out; no fetch of
+      // this row touches its buffer
+      if (t - 1 >= first) writeback(t - 1);
+      if (t == first) {
+        // The meeting: wait (once) for the other scan's whole first half,
+        // which never waits on this scan, so neither can block the other;
+        // every thread acquires it.  Then this row's and the next row's
+        // fetches, complete before the row starts.
+        while (load_acquire(other_done) < base + (H - first)) {
+        }
+        prefetch(t);
+        if (t + 1 < H) prefetch(t + 1);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+      }
+      // one group per row (row t + 2's fetch, or none), then a census chunk
+      // every kRows rows
+      if (t + 2 > first + 1 && t + 2 < H) prefetch(t + 2);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      if (t % kRows == 0) census_fetch(t / kRows + 1);
+      const int* crow_t = census + ((t / kRows) & 1) * kRows * crow +
+                          (t % kRows) * crow;
+      const int rb = (t & 1) * GS;
+      if (ONE) {
+        if (ca < nb) column_step(t, ca, col, crow_t, rb, st, sp);
+        sp += slab_step;
+      } else {
+        for (int cx = ca; cx < cb; ++cx)
+          column_step(t, cx, band_column(cx, x0, D, min_d, q, lane), crow_t,
+                      rb, lane_state(cx), lane_slab(cx) + t * slab_step);
+      }
+      // the carries a warp reads next row were written by other warps, and
+      // so were the fetched rows: all but this row's groups are complete
+      if (t % kRows == 0) {
+        asm volatile("cp.async.wait_group 2;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      }
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();   // the row's slab stores before the count
+        store_relaxed(done + band, base + t + 1);
+      }
     }
+    if (H - 1 >= first) writeback(H - 1);
+    // every copy of this stream complete and every thread past its
+    // writeback before the next stream's state and census land
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
   }
-  if (H - 1 >= first) writeback(H - 1);
 }
 
 
@@ -1121,6 +1167,12 @@ bool census_y_geometry_ok(int W, int D, int g, int nbands, int ncols,
 // volume's border rows through B5's zero state columns.  The first step of
 // a path runs the update on a zero carry, as the plain twin does (which
 // gives L = C, clamped at 9984 with bf16 carries).
+// Stream axis (the fleet's vmapped round on the materialized branch, where
+// the JAX package's vmap gives _axis_call's grid a stream axis): volumes
+// (B, L, R, D) in one launch, each stream with its own out and slab; the
+// line kernel takes the stream on grid y, the band kernel (cooperative,
+// one block per SM) walks the streams in each block as B5 does, with B5's
+// global-row halo tags and rows-done counts.
 // Bound on the H100: bytes.  At KITTI size (x family L 1241, R 376; y
 // family L 376, R 1241; D 127) each launch reads the 118.5 MB bf16 volume
 // and writes the 237 MB f32 out: 106 us at 3.35 TB/s; the slab adds 119 MB
@@ -1226,6 +1278,11 @@ __global__ void __launch_bounds__(64)
   __shared__ __align__(16) unsigned char s_rows[2][kLRing][kLRowBytes];
   __shared__ uint2 s_other[2][kLRing][32];
   const int o = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // stream blockIdx.y: its volume, out and slab
+  const size_t lr = static_cast<size_t>(L) * R;
+  v += blockIdx.y * lr * D;
+  out += blockIdx.y * lr * D;
+  slab += blockIdx.y * lr * 128;
   const bool fwd = o == 0;
   const int first = fwd ? L >> 1 : L - (L >> 1);  // steps before the meeting
   // step 0's row, and the element strides from a step's row to the next
@@ -1317,7 +1374,7 @@ struct AxisBand {
   // B5's layout for g = 3: [2 o][nbands][2 side][3][kHaloRows][128] tagged
   // carries, then [2 o][nbands] rows done (u32); zeroed before the launch
   unsigned long long* halo;
-  int L, R, D, min_d, ncols, cpw, nbands, entry;
+  int B, L, R, D, min_d, ncols, cpw, nbands, entry;
   float p1, p2;
 };
 
@@ -1347,7 +1404,8 @@ __device__ __forceinline__ int band_roll(int k) {
 // band through the tagged halo ring, one block barrier per step.  Step t's
 // band row of the volume (ncols D contiguous bf16) is staged two steps
 // ahead; in the second half so are the other orientation's totals of the
-// band's rows, and each warp writes f32(own) + f32(other) of its rows.
+// band's rows, and each warp writes f32(own) + f32(other) of its rows.  A
+// block walks the B streams of its band in turn, as B5's blocks do.
 template <bool BF16>
 __global__ void __launch_bounds__(kYThreads, 1)
     axis_band_kernel(const AxisBand a) {
@@ -1367,14 +1425,21 @@ __global__ void __launch_bounds__(kYThreads, 1)
   // row to the band before it
   const bool from_left = band > 0, from_right = band < nbands - 1;
   const bool to_right = from_right, to_left = from_left;
-  auto halo_at = [&](int bnd, int side, int k, int t) {
+  // slot of global step gt = s L + t (stream s, step t) in a ring
+  auto halo_at = [&](int bnd, int side, int k, unsigned gt) {
     return a.halo +
            ((((static_cast<size_t>(o) * nbands + bnd) * 2 + side) * G + k) *
                 kHaloRows +
-            t % kHaloRows) *
+            gt % kHaloRows) *
                128 +
            4 * lane;
   };
+  // the stream the block is on: its volume, out, slab and global step base
+  const size_t lrd = static_cast<size_t>(L) * R * D;
+  const __nv_bfloat16* vol = a.v;
+  float* out = a.out;
+  __nv_bfloat16* slab = a.slab;
+  unsigned base = 0;
   unsigned* done = reinterpret_cast<unsigned*>(
                        a.halo + static_cast<size_t>(2) * nbands * 2 * G *
                                     kHaloRows * 128) +
@@ -1386,11 +1451,9 @@ __global__ void __launch_bounds__(kYThreads, 1)
   unsigned char* vrows =                                    // [kVRing][row_bytes]
       reinterpret_cast<unsigned char*>(state + 2 * G * S * 128);
   uint2* obuf = reinterpret_cast<uint2*>(vrows + kVRing * row_bytes);  // [4][ncols][32]
-  for (int i = tid; i < 2 * G * S * 128; i += nthreads)
-    state[i] = (i & 127) < D ? 0.0f : CUDART_INF_F;
   auto row_y = [&](int t) { return o == 0 ? t : L - 1 - t; };
   auto band_row = [&](int t) {
-    return a.v + (static_cast<size_t>(row_y(t)) * R + x0) * D;
+    return vol + (static_cast<size_t>(row_y(t)) * R + x0) * D;
   };
   auto vfetch = [&](int t) {
     if (t < L)
@@ -1403,7 +1466,7 @@ __global__ void __launch_bounds__(kYThreads, 1)
     const size_t r = static_cast<size_t>(row_y(s)) * R + x0;
     for (int i = tid; i < nb * 16; i += nthreads)
       cp_async16(reinterpret_cast<char*>(obuf + b * ncols * 32) + 16 * i,
-                 reinterpret_cast<const char*>(a.slab + r * 128) + 16 * i);
+                 reinterpret_cast<const char*>(slab + r * 128) + 16 * i);
   };
 
   const float p1v = BF16 ? round_bf16(a.p1) : a.p1;
@@ -1426,9 +1489,10 @@ __global__ void __launch_bounds__(kYThreads, 1)
 #pragma unroll
     for (int k = 0; k < G; ++k)
       ext[k] = (band_roll(k) > 0 && in_left) || (band_roll(k) < 0 && in_right);
+    const unsigned gt = base + t;   // the global step
     auto halo_in = [&](int k) {
-      return band_roll(k) > 0 ? halo_at(band - 1, 0, k, t - 1)
-                              : halo_at(band + 1, 1, k, t - 1);
+      return band_roll(k) > 0 ? halo_at(band - 1, 0, k, gt - 1)
+                              : halo_at(band + 1, 1, k, gt - 1);
     };
     if (halo) {
 #pragma unroll
@@ -1453,11 +1517,11 @@ __global__ void __launch_bounds__(kYThreads, 1)
 #pragma unroll
       for (int k = 0; k < G; ++k) {
         unsigned long long* h = nullptr;
-        if (band_roll(k) > 0 && out_right) h = halo_at(band, 0, k, t);
-        if (band_roll(k) < 0 && out_left) h = halo_at(band, 1, k, t);
+        if (band_roll(k) > 0 && out_right) h = halo_at(band, 0, k, gt);
+        if (band_roll(k) < 0 && out_left) h = halo_at(band, 1, k, gt);
         if (h != nullptr) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) store_tagged(h + j, Lk[k].v[j], t + 1);
+          for (int j = 0; j < 4; ++j) store_tagged(h + j, Lk[k].v[j], gt + 1);
         }
       }
     };
@@ -1477,8 +1541,7 @@ __global__ void __launch_bounds__(kYThreads, 1)
         Planes hc;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          while (static_cast<unsigned>(hv[k][j] >> 32) !=
-                 static_cast<unsigned>(t))
+          while (static_cast<unsigned>(hv[k][j] >> 32) != gt)
             hv[k][j] = load_tagged(h + j);
           hc.v[j] = __uint_as_float(static_cast<unsigned>(hv[k][j]));
         }
@@ -1502,49 +1565,60 @@ __global__ void __launch_bounds__(kYThreads, 1)
     }
     const size_t row = static_cast<size_t>(row_y(t)) * R + x;
     if (t < first) {
-      store_bf16x4(a.slab + row * 128 + 4 * lane, tot);
+      store_bf16x4(slab + row * 128 + 4 * lane, tot);
     } else {
-      store_sum(a.out + row * D, tot,
+      store_sum(out + row * D, tot,
                 obuf[((t & 3) * ncols + cx) * 32 + lane], D, lane);
     }
   };
 
-  vfetch(0);
-  cp_async_commit();
-  vfetch(1);
-  cp_async_commit();
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-  __syncthreads();
-  for (int t = 0; t < L; ++t) {
-    if (t == first) {
-      // the meeting, as in B5: wait once for the other scan's first half,
-      // then this step's and the next step's other totals
-      while (load_acquire(other_done) < static_cast<unsigned>(L - first)) {
-      }
-      prefetch(t);
-      if (t + 1 < L) prefetch(t + 1);
-      cp_async_commit();
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-      __syncthreads();
-    }
-    // one group per step: step t + 2's band row (and other totals)
-    vfetch(t + 2);
-    if (t >= first && t + 2 < L) prefetch(t + 2);
+  for (int stream = 0; stream < a.B; ++stream) {
+    vol = a.v + stream * lrd;
+    out = a.out + stream * lrd;
+    slab = a.slab + stream * (lrd / D) * 128;
+    base = static_cast<unsigned>(stream) * L;
+    for (int i = tid; i < 2 * G * S * 128; i += nthreads)
+      state[i] = (i & 127) < D ? 0.0f : CUDART_INF_F;
+    vfetch(0);
     cp_async_commit();
-    const unsigned short* vrow =
-        reinterpret_cast<const unsigned short*>(vrows +
-                                                (t % kVRing) * row_bytes) +
-        run_offset(band_row(t));
-    const int rb = (t & 1) * GS;
-    for (int cx = ca; cx < cb; ++cx) row_step(t, cx, rb, vrow);
-    // step t + 1's group is complete; the barrier shows it, and this step's
-    // state, to every warp
+    vfetch(1);
+    cp_async_commit();
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     __syncthreads();
-    if (tid == 0) {
-      __threadfence();   // the step's slab stores before the count
-      store_relaxed(done + band, t + 1);
+    for (int t = 0; t < L; ++t) {
+      if (t == first) {
+        // the meeting, as in B5: wait once for the other scan's first half,
+        // then this step's and the next step's other totals
+        while (load_acquire(other_done) < base + (L - first)) {
+        }
+        prefetch(t);
+        if (t + 1 < L) prefetch(t + 1);
+        cp_async_commit();
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+      }
+      // one group per step: step t + 2's band row (and other totals)
+      vfetch(t + 2);
+      if (t >= first && t + 2 < L) prefetch(t + 2);
+      cp_async_commit();
+      const unsigned short* vrow =
+          reinterpret_cast<const unsigned short*>(vrows +
+                                                  (t % kVRing) * row_bytes) +
+          run_offset(band_row(t));
+      const int rb = (t & 1) * GS;
+      for (int cx = ca; cx < cb; ++cx) row_step(t, cx, rb, vrow);
+      // step t + 1's group is complete; the barrier shows it, and this step's
+      // state, to every warp
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();   // the step's slab stores before the count
+        store_relaxed(done + band, base + t + 1);
+      }
     }
+    // every copy of this stream complete before the next stream's rows land
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
   }
 }
 
@@ -1588,18 +1662,19 @@ int sgm_axis_lines(const void* v, float* scratch, float* out, int L, int R,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B4 for D <= 128 -> f32 out (L, R, D).  slab: bf16 (L, R, 128).  Rolls (0):
-// axis_line_kernel, R blocks of 64 threads (the geometry arguments
-// are not read).  Rolls
+// B4 for D <= 128 over B streams' volumes (B, L, R, D) -> f32 out (B, L, R,
+// D).  slab: bf16 (B, L, R, 128).  Rolls (0): axis_line_kernel, (R, B)
+// blocks of 64 threads (the geometry arguments are not read).  Rolls
 // (0, +1, -1): axis_band_kernel, 2 * nbands blocks of `threads` threads
 // with `smem` bytes (the plan's), halo: census_y_halo_bytes(3, nbands)
-// bytes, zeroed here.  v must be 16-byte aligned.
-int sgm_axis_warp(const void* v, float* out, void* slab, void* halo, int L,
-                  int R, int D, int g, int roll0, int roll1, int roll2,
-                  float p1, float p2, int carry_bf16, int entry, int min_d,
-                  int nbands, int ncols, int cpw, int threads, int smem,
-                  void* stream) {
+// bytes (the same for any B), zeroed here.  v must be 16-byte aligned.
+int sgm_axis_warp(const void* v, float* out, void* slab, void* halo, int B,
+                  int L, int R, int D, int g, int roll0, int roll1,
+                  int roll2, float p1, float p2, int carry_bf16, int entry,
+                  int min_d, int nbands, int ncols, int cpw, int threads,
+                  int smem, void* stream) {
   if (D < 1 || D > 128 || L < 1 || R < 1 || entry < 0 || entry > 2 ||
+      B < 1 || B > 65535 || static_cast<long long>(B) * L >= (1LL << 31) ||
       !census_y_rolls_ok(g, roll0, roll1, roll2) ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return cudaErrorInvalidValue;
@@ -1609,8 +1684,8 @@ int sgm_axis_warp(const void* v, float* out, void* slab, void* halo, int L,
   if (g == 1) {
     auto kernel =
         carry_bf16 ? axis_line_kernel<true> : axis_line_kernel<false>;
-    kernel<<<R, 64, 0, s>>>(vb, out, sl, L, R, D, p1, p2, entry == 1,
-                            min_d);
+    kernel<<<dim3(R, B), 64, 0, s>>>(vb, out, sl, L, R, D, p1, p2,
+                                     entry == 1, min_d);
     return static_cast<int>(cudaGetLastError());
   }
   if (!bands_ok(R, nbands, ncols, cpw, threads) || smem > kMaxSmem ||
@@ -1619,20 +1694,21 @@ int sgm_axis_warp(const void* v, float* out, void* slab, void* halo, int L,
   const cudaError_t err =
       cudaMemsetAsync(halo, 0, census_y_halo_bytes(3, nbands), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const AxisBand a{vb, out, sl, static_cast<unsigned long long*>(halo), L, R,
-                   D, min_d, ncols, cpw, nbands, entry, p1, p2};
+  const AxisBand a{vb, out, sl, static_cast<unsigned long long*>(halo), B, L,
+                   R, D, min_d, ncols, cpw, nbands, entry, p1, p2};
   return carry_bf16 ? launch_cooperative(axis_band_kernel<true>, a,
                                          2 * nbands, threads, smem, s)
                     : launch_cooperative(axis_band_kernel<false>, a,
                                          2 * nbands, threads, smem, s);
 }
 
-// B6: the x family of the census aggregate, written to out (D, H, W).
-// slab: bf16 (H, W, 128); smem: census_x_smem(W) bytes.
-int sgm_census_x(const int* cl, const int* cr, float* out, void* slab, int H,
-                 int W, int D, float p1, float p2, int min_d, int carry_bf16,
-                 int smem, void* stream) {
-  if (D < 1 || D > 128 || H < 1 || W < 1 ||
+// B6: the x family of the census aggregate of B streams, written to out
+// (B, D, H, W) from census images (B, H, W).  slab: bf16 (B, H, W, 128);
+// smem: census_x_smem(W) bytes.
+int sgm_census_x(const int* cl, const int* cr, float* out, void* slab, int B,
+                 int H, int W, int D, float p1, float p2, int min_d,
+                 int carry_bf16, int smem, void* stream) {
+  if (D < 1 || D > 128 || H < 1 || W < 1 || B < 1 || B > 65535 ||
       static_cast<size_t>(smem) != census_x_smem(W) || smem > kMaxSmem)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1641,20 +1717,24 @@ int sgm_census_x(const int* cl, const int* cr, float* out, void* slab, int H,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<H, 64, smem, s>>>(cl, cr, out, sl, H, W, D, p1, p2, min_d);
+  kernel<<<dim3(H, B), 64, smem, s>>>(cl, cr, out, sl, H, W, D, p1, p2,
+                                      min_d);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B5: the y family (vertical + diagonals) of the census aggregate, added to
-// out (D, H, W), which holds the x family.  slab: bf16 (H, W, 128); halo:
-// census_y_halo_bytes(g, nbands) bytes, zeroed here; the geometry (nbands
-// bands of ncols columns, cpw columns per warp, threads, smem) is the plan's.
+// B5: the y family (vertical + diagonals) of the census aggregate of B
+// streams, added to out (B, D, H, W), which holds the x family, from census
+// images (B, H, W).  slab: bf16 (B, H, W, 128); halo:
+// census_y_halo_bytes(g, nbands) bytes (the same for any B), zeroed here;
+// the geometry (nbands bands of ncols columns, cpw columns per warp,
+// threads, smem) is the plan's.
 int sgm_census_y(const int* cl, const int* cr, float* out, void* slab,
-                 void* halo, int H, int W, int D, int g,
+                 void* halo, int B, int H, int W, int D, int g,
                  int roll0, int roll1, int roll2, float p1, float p2,
                  int min_d, int carry_bf16, int nbands, int ncols, int cpw,
                  int threads, int smem, void* stream) {
-  if (D < 1 || D > 128 || H < 1 ||
+  if (D < 1 || D > 128 || H < 1 || B < 1 ||
+      static_cast<long long>(B) * H >= (1LL << 31) ||
       !census_y_rolls_ok(g, roll0, roll1, roll2) ||
       !census_y_geometry_ok(W, D, g, nbands, ncols, cpw, threads, smem))
     return cudaErrorInvalidValue;
@@ -1663,8 +1743,8 @@ int sgm_census_y(const int* cl, const int* cr, float* out, void* slab,
                                     s);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* sl = static_cast<__nv_bfloat16*>(slab);
-  CensusY a{cl, cr, out, sl, static_cast<unsigned long long*>(halo), H, W,
-            D, min_d, ncols, cpw, nbands, {roll0, roll1, roll2}, p1, p2};
+  CensusY a{cl, cr, out, sl, static_cast<unsigned long long*>(halo), B, H,
+            W, D, min_d, ncols, cpw, nbands, {roll0, roll1, roll2}, p1, p2};
   return census_y_dispatch(carry_bf16 != 0, g, cpw == 1,
                            CensusYLaunch{a, threads, smem, s});
 }

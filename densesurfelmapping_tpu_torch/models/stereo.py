@@ -345,7 +345,9 @@ def _axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
 
     def one_dir(reverse: bool) -> torch.Tensor:
         carry = torch.zeros((g, R, D), dtype=cdt, device=dev)
-        out = torch.empty((L, R, D), dtype=torch.bfloat16, device=dev)
+        # rows collected and stacked (not written into an empty volume), so
+        # that the scan runs under torch.func.vmap
+        out = [None] * L
         for t in (range(L - 1, -1, -1) if reverse else range(L)):
             rolled = torch.stack([_roll_carry(carry[k], rolls[k])
                                   for k in range(g)])
@@ -363,7 +365,7 @@ def _axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
                 tot = tot + nxt[k]
             out[t] = tot.to(torch.bfloat16)
             carry = nxt
-        return out.float()
+        return torch.stack(out).float()
 
     return one_dir(False) + one_dir(True)
 

@@ -61,9 +61,11 @@ def coarse_zbuffer(config: SurfelMapConfig, bank: SurfelBank,
           & (z >= config.fuse_near) & (z <= config.fuse_far)
           & (pu >= 0) & (pu < w) & (pv >= 0) & (pv < h))
     cell = torch.where(ok, (pv // stride) * ws + (pu // stride), hs * ws)
-    # one spare slot takes the rejected rows (the JAX scatter drops them)
+    # one spare slot takes the rejected rows (the JAX scatter drops them);
+    # out of place, so that under torch.func.vmap (the stereo fleet's
+    # round) the batched depths scatter into a batched buffer
     buf = torch.full((hs * ws + 1,), float("inf"), dtype=torch.float32,
                      device=z.device)
-    buf.scatter_reduce_(0, cell.long(), torch.where(ok, z, float("inf")),
-                        "amin")
+    buf = buf.scatter_reduce(0, cell.long(), torch.where(ok, z, float("inf")),
+                             "amin")
     return buf[:hs * ws].view(hs, ws)

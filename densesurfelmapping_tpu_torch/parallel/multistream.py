@@ -7,8 +7,11 @@ per round (batched banks, batched frames), where the JAX package runs
 `pipeline/fuse_step.py` runs under `torch.func.vmap`: every PyTorch op of the
 step runs once for the B streams, and the three SLIC kernels reach their
 stream axis through their vmap rule (`ops/cuda/slic.py`), one launch per
-sweep for all streams.  Banks are updated in place (the JAX package donates
-them).
+sweep for all streams.  In stereo mode the whole per-stream stereo step
+(pair unpack, map prior, matcher, depth, filter, fuse) runs under the vmap,
+and the SGM kernels reach theirs the same way (`ops/cuda/sgm.py`): one
+matcher pass per round, one launch of B5 and of B6 for all streams.  Banks
+are updated in place (the JAX package donates them).
 
 The reference has no equivalent (one ROS process maps one session).
 """
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import SurfelMapConfig
-from ..core.state import AUX_HEAD_BYTES, FIELDS, FrameInput, SurfelBank
+from ..core.state import AUX_HEAD_BYTES, FIELDS, SurfelBank
 from ..ops import fusion
 from ..ops import warp as warp_ops
 from ..pipeline import fuse_step
@@ -175,10 +178,11 @@ def graphed_onebuf_step(config: SurfelMapConfig, banks: SurfelBank,
         keep=fuse_step.step_geometry(config, banks))
 
 
-def _fuse_depth(config, bank, image, depth, pose, frame_index, pose_mask):
-    return fuse_step.fuse_frame(config, bank, FrameInput(
-        image=image, depth=depth, pose=pose, frame_index=frame_index),
-        pose_mask=pose_mask)[1]
+def _fuse_stereo(config, stereo_config, filter_depth, bank, frame, pose,
+                 frame_index, bf, pose_mask):
+    return fuse_step.fuse_frame_stereo_windowed_packed(
+        config, stereo_config, filter_depth, bank, frame, pose, frame_index,
+        bf, pose_mask)[1]
 
 
 def batched_stereo_onebuf_step(config: SurfelMapConfig, stereo_config,
@@ -186,39 +190,28 @@ def batched_stereo_onebuf_step(config: SurfelMapConfig, stereo_config,
                                payload: torch.Tensor) -> dict:
     """The stereo-resident windowed step of every stream from ONE
     (B, 2 h w + 72 + P) u8 payload (each row
-    `core.state.pack_stereo_with_aux`).  Each stream's depth comes from the
-    on-device matcher (`fuse_step.compute_depth_stereo`, its map prior from
-    that stream's bank), one stream after another into one (B, H, W)
-    depth; the fuse step then runs once for all streams.  The batched
-    `fuse_step.fuse_frame_stereo_onebuf`."""
-    b = payload.shape[0]
-    h, w = config.height, config.width
-    ph, pw = config.padded_height, config.padded_width
-    pad = (0, pw - w, 0, ph - h)
-    frames, poses, refs, bf, masks = unpack_payload(payload, 2 * h * w)
-    lefts, depths, rescued = [], [], []
-    for k in range(b):
-        left, right = fuse_step.unpack_stereo(config, frames[k])
-        depth, n_rescued = fuse_step.compute_depth_stereo(
-            config, stereo_config, left, right, bf[k], filter_depth,
-            prior_depth=fuse_step._stereo_prior(
-                config, stereo_config, stream_bank(banks, k), poses[k]))
-        lefts.append(torch.nn.functional.pad(left, pad))
-        depths.append(torch.nn.functional.pad(depth, pad))
-        rescued.append(n_rescued)
-    stats = _vmap_banks(functools.partial(_fuse_depth, config))(
-        banks, torch.stack(lefts), torch.stack(depths), poses, refs, masks)
-    stats["n_rescued_px"] = torch.stack(rescued)
-    return stats
+    `core.state.pack_stereo_with_aux`): one stream's whole step
+    (`fuse_step.fuse_frame_stereo_windowed_packed`: the pair's unpack, the
+    map prior from that stream's bank, the matcher, depth, filter, pad and
+    fuse) under torch.func.vmap over the streams, as the JAX fleet vmaps
+    `fuse_frame_stereo_onebuf`.  The matcher runs once for all streams:
+    B5 and B6 (or B4 on the materialized branch) launch once per round
+    through their vmap rules.  Banks updated in place; returns the stats,
+    (B,) each, `n_rescued_px` among them."""
+    frames, poses, refs, bf, masks = unpack_payload(
+        payload, 2 * config.height * config.width)
+    return _vmap_banks(functools.partial(
+        _fuse_stereo, config, stereo_config, filter_depth))(
+            banks, frames, poses, refs, bf, masks)
 
 
 def graphed_stereo_onebuf_step(config: SurfelMapConfig, stereo_config,
                                filter_depth: bool, banks: SurfelBank,
                                pool=None) -> fuse_step.StepGraph:
     """`batched_stereo_onebuf_step` on `banks` as a `fuse_step.StepGraph`
-    over the round's (B, 2 h w + 72 + P) payload: the B prior renders and
-    matcher passes (B5/B6 once per stream) and the one vmapped fuse step
-    (B1-B3's batched launches) in one captured graph replayed once per
+    over the round's (B, 2 h w + 72 + P) payload: the one vmapped stereo
+    step (one B6 and one B5 launch, or B4's on the materialized branch, and
+    B1-B3's batched launches) in one captured graph replayed once per
     round.  The counterpart of the JAX fleet's jitted
     `_batched_stereo_onebuf_step` (densesurfelmapping_tpu/pipeline/
     multi_session.py:90-96)."""

@@ -29,10 +29,11 @@ Serving lifecycle:
   (`save_cloud`/`save_mesh`, surfel_map.cpp:1153-1280) and the JAX
   package's checkpoint schema, key for key.
 * stereo serving — `enable_stereo(bf)` switches the WHOLE fleet to raw
-  stereo-pair input: each stream's depth comes from the on-device matcher
-  of `fuse_step.fuse_frame_stereo_onebuf`, then the fuse step runs once for
-  all streams (padded sessions ride an all-zero pair, which the
-  textureless gate makes a no-op).
+  stereo-pair input: the whole stereo step of one stream (map prior,
+  on-device matcher, depth, fuse; `fuse_step.fuse_frame_stereo_onebuf`)
+  runs under torch.func.vmap for all streams, one matcher pass per round
+  (padded sessions ride an all-zero pair, which the textureless gate
+  makes a no-op).
 * uploads — a round's entire payload (B frames + B pose/ref/window aux
   blocks) is ONE (B, frame_bytes + aux_bytes) u8 copy per round, from
   pinned memory without blocking the host.
