@@ -1944,6 +1944,8 @@ def phase_multi_sgm(device) -> dict:
     crop = (slice(0, 3), slice(150, 211), slice(300, 397))     # 61 x 97
     check_multi_sgm("a 61 x 97 crop of 3 pairs", cl[crop].contiguous(),
                     cr[crop].contiguous(), 3, 37)
+    wide = check_wide_route(cl[crop][:2].contiguous(),
+                            cr[crop][:2].contiguous())
 
     h, w = cl.shape[-2:]
     cells = n_d * h * w
@@ -1996,9 +1998,87 @@ def phase_multi_sgm(device) -> dict:
         {k: (fx[k] + fy[k]) / 2 for k in fx if k != "bound_by"},
         bound_by=("bytes" if fx["bound_by"] == fy["bound_by"] == "bytes"
                   else "operations"))
-    return {name: dict(t, streams=N_STREAMS, max_abs_err=0.0,
-                       route=SGM_STREAM_ROUTES[name])
-            for name, t in times.items()}
+    out = {name: dict(t, streams=N_STREAMS, max_abs_err=0.0,
+                      route=SGM_STREAM_ROUTES[name])
+           for name, t in times.items()}
+    out["sgm_axis_scan"]["wide_route"] = wide
+    return out
+
+
+WIDE_D = 150             # B4's wide route (128 < D <= 1024): the crop's D
+WIDE_KERNELS = ("scan_lines_kernel", "combine_axis_kernel")
+
+
+def check_wide_route(cl, cr) -> dict:
+    """B4's wide route with a stream axis on the 61 x 97 crop of 2 pairs
+    at D = WIDE_D from 3: x family and y family of 8 and 4 paths, f32 and
+    bf16 carries, one call for both streams: each stream torch.equal to
+    the single-stream call and to the twin, under torch.func.vmap == the
+    batched call; 2 device launches a call (the line kernel and the
+    combine pass, the profiler's records) whatever the streams; device us
+    a call at B = 1 and B = 2 (the y family of 8 paths).  Returns those
+    times."""
+    from densesurfelmapping_tpu_torch.models import stereo as S
+    from densesurfelmapping_tpu_torch.ops import sgm as P
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as K
+    scfg = sgm_config()
+    p1, p2 = scfg.sgm_p1, scfg.sgm_p2
+    n = cl.shape[0]
+    vols = torch.stack([S._census_volume(cl[k], cr[k], 3, WIDE_D)
+                        for k in range(n)])
+    scans = ((vols.permute(0, 3, 2, 1).contiguous(), (0,), "x"),
+             (vols.permute(0, 2, 3, 1).contiguous(), (0, 1, -1), "y"),
+             (vols.permute(0, 2, 3, 1).contiguous(), (0,), "y"))
+    del vols
+    for v, r, e in scans:
+        require(K.axis_plan(*v.shape[1:], r, K._sms(v.device),
+                            n).route == "lines",
+                f"D = {WIDE_D} does not take the wide route")
+    calls = 0
+    with device_records() as records:
+        for bf16 in (False, True):
+            for v, r, e in scans:
+                kb = one_launch("sgm_axis_scan", lambda: K.axis_scan(
+                    v, r, p1, p2, bf16, e, 3))
+                calls += 1
+                for k in range(n):
+                    for what, want in (
+                            ("single", K.axis_scan(v[k].clone(), r, p1, p2,
+                                                   bf16, e, 3)),
+                            ("twin", P.axis_scan(v[k], r, p1, p2, bf16, e,
+                                                 3))):
+                        require(bool(torch.equal(kb[k], want)),
+                                f"wide sgm_axis_scan {e} {r} bf16={bf16} "
+                                f"stream {k} != {what}")
+                vm = torch.func.vmap(functools.partial(
+                    K.axis_scan, rolls=r, p1=p1, p2=p2, carry_bf16=bf16,
+                    entry=e, min_d=3))(v)
+                require(bool(torch.equal(vm, kb)), f"wide sgm_axis_scan "
+                        f"{e} {r} bf16={bf16} under vmap != batched")
+                calls += 1 + n       # the vmap's call and the singles
+    # each call runs each of the two kernels once: the profiler may miss a
+    # record or two of a window (`runs_floor`)
+    launched = {k: sum(k in name for _, name in records)
+                for k in WIDE_KERNELS}
+    require(all(runs_floor(calls, 1, records.lost) <= v <= calls
+                for v in launched.values()), f"wide route: device records "
+            f"{launched} for {calls} calls, want one of each a call")
+    v, r, _ = scans[1]
+    t = {b: kernel_time(lambda b=b: K.axis_scan(v[:b], r, p1, p2, False,
+                                                "y", 3), WIDE_KERNELS)
+         for b in (1, n)}
+    say("multi-kernels", f"sgm_axis_scan (B4) wide route, D = {WIDE_D} "
+        f"on the 61 x 97 crop of {n} pairs: one call for the {n} streams "
+        f"(scan_lines_kernel grid z = stream, one combine pass), each "
+        f"stream torch.equal to the single-stream call and the twin, x and "
+        f"y families of 8 and 4 paths, f32 and bf16 carries, under vmap == "
+        f"the batched call; device records {launched} for {calls} calls "
+        f"(one of each kernel a call); "
+        f"y family of 8 paths: device {t[1]['us']:.2f} us a call at B = 1, "
+        f"{t[n]['us']:.2f} at B = {n} (min {t[n]['us_min']:.2f}, max "
+        f"{t[n]['us_max']:.2f}); scratch {4 * 2 * 3 * n * 61 * 97 * WIDE_D} "
+        f"B at B = {n}")
+    return dict(streams=n, d=WIDE_D, us_1=t[1]["us"], us_n=t[n]["us"])
 
 
 def fleet_rows(multi, k: int) -> dict:
@@ -3377,8 +3457,9 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
     reads allowed.  Launches by the profiler's kernel records; graphed and
     eager frames/s (median of N_RATE); replays, captures and each MemPool's
     MiB.  The sharded SGM's graph replay == its eager call == the
-    replicated plain disparity.  Returns the device runs of the kernels in
-    the graphed drives."""
+    replicated plain disparity.  Then `rows_check` on a (2, 2) mesh of
+    the card: 4 streams, 2 a data row.  Returns the device runs of the
+    kernels in the graphed drives."""
     from densesurfelmapping_tpu_torch.config import kitti_config
     from densesurfelmapping_tpu_torch.models import stereo as ST
     from densesurfelmapping_tpu_torch.parallel import sgm_sharding
@@ -3650,6 +3731,9 @@ def phase_sharded(device, frames, pairs, smi: str) -> dict:
             f"capture {graph.capture_ms / 1e3:.3f} s, replay {replay_s:.3f} "
             f"s (plain scans; {label})")
         del graph
+
+    # several streams on a data row: a (2, 2) mesh of this card, 4 streams
+    add(rows_check(cfg, make_mesh(4, data=2), frames, pairs, "sharded"))
     return total
 
 
@@ -3756,41 +3840,245 @@ def link_lines(n_cards: int) -> list:
     return out
 
 
-def data_rows_check(cfg, mesh, frames, n: int) -> str:
-    """`graphed_fuse_frame_windowed_packed` over a mesh of 2 data rows (2
-    streams, each on its row's cards) against the eager mesh program:
-    stats and every shard torch.equal after each of n frames."""
-    from densesurfelmapping_tpu_torch.core.state import (pack_aux,
-                                                          pack_frame_with_aux)
+ROW_STREAMS = 4          # streams of the rows check: 2 a data row
+ROW_FRAMES = 4           # its depth-fed frames
+ROW_PAIRS = 3            # its stereo pairs
+
+
+def row_payloads(cfg, frames, pairs, t: int, stereo: bool) -> torch.Tensor:
+    """(ROW_STREAMS, payload bytes) u8 of the rows check's step t: stream
+    b fuses frame 6 b + t, or pair (b + t) mod len(pairs), as frame
+    index t: every stream its own poses."""
+    from densesurfelmapping_tpu_torch.core.state import (
+        pack_aux, pack_frame_with_aux, pack_stereo_pair,
+        pack_stereo_with_aux)
+    mask = np.ones(cfg.max_keyframes, bool)
+    rows = []
+    for b in range(ROW_STREAMS):
+        if stereo:
+            li, ri, _, pose = pairs[(b + t) % len(pairs)]
+            rows.append(pack_stereo_with_aux(
+                cfg, pack_stereo_pair(cfg, li, ri),
+                pack_aux(pose, t, mask, bf=cfg.camera.fx * BASELINE_M)))
+        else:
+            img, dep, pose = frames[6 * b + t]
+            rows.append(pack_frame_with_aux(cfg, img, dep,
+                                            pack_aux(pose, t, mask)))
+    return torch.from_numpy(np.stack(rows))
+
+
+def same_stream(a, b: int, solo) -> bool:
+    """Stream b of the sharded banks `a` torch.equal to stream 0 of
+    `solo`, shard by shard, every field and the count."""
+    from densesurfelmapping_tpu_torch.core.state import FIELDS
+    return a.n_shards == solo.n_shards and all(
+        torch.equal(getattr(x, k), getattr(y, k).to(x.device))
+        for x, y in zip(a.shards[b], solo.shards[0])
+        for k in FIELDS + ("count",))
+
+
+def check_card_runs(ex: dict, per_cell: dict, on_card: dict, steps: int,
+                    what: str) -> None:
+    """Each card's device runs (the records' device index) of a graphed
+    drive of `steps` replays after one capture: per_cell[k] a step on
+    each of its cells (`on_card`: card index -> cells), bounded below by
+    `runs_floor`."""
+    for card, cells_here in on_card.items():
+        got = ex["card_runs"].get(card, {})
+        for k, v in per_cell.items():
+            want = v * cells_here * (steps + 1)
+            require(max(runs_floor(want, v * cells_here, ex["lost"]),
+                        min(v, 1)) <= got.get(k, 0) <= want,
+                    f"{what}: cuda:{card} ran {k} {got.get(k, 0)} times, "
+                    f"want {want} ({v} per step on each of its {cells_here} "
+                    f"cells)")
+
+
+def steady_rate(step, loads, streams: int) -> float:
+    """Aggregate frames/s of step(payload) over loads[1:], after loads[0]
+    (a graph's capture), to a synchronize of every card."""
+    step(loads[0])
+    sync_all()
+    t0 = time.perf_counter()
+    for p in loads[1:]:
+        step(p)
+    sync_all()
+    return streams * (len(loads) - 1) / (time.perf_counter() - t0)
+
+
+def rows_bank_programs(cfg, mesh, g_banks, e_banks) -> str:
+    """One warp by pose, one compaction, one extract and one append, each
+    a graph (`sharding.graphed_*`) on g_banks against the eager mesh
+    program on e_banks (per-stream inputs): every cell torch.equal after
+    each, the extract's buffers and counts too."""
+    from densesurfelmapping_tpu_torch.core.state import FIELDS
+    from densesurfelmapping_tpu_torch.ops.migration import MAX_REMOVE_POSES
+    from densesurfelmapping_tpu_torch.parallel import sharding as SH
+    from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    B, P, n = g_banks.n_streams, cfg.max_keyframes, mesh.shape["surfel"]
+    home = mesh.device(0, 0)
+    rng = np.random.default_rng(3)
+    warps = np.tile(np.eye(4, dtype=np.float32), (B, P, 1, 1))
+    warps[:, :4, :3, 3] = rng.normal(scale=0.1, size=(B, 4, 3))
+    moved = np.zeros((B, P), bool)
+    moved[:, :3] = True
+    masks = np.zeros((B, P), bool)
+    masks[:, 2:4] = True
+    firsts = np.full(B, 2, np.int64)
+    ids = np.full(MAX_REMOVE_POSES, -1, np.int32)
+    ids[:2] = (0, 1)
+    per = 256
+    one = g_banks.shards[0][0]
+    slab = [rng.integers(1, 9, (B, n * per) + getattr(one, k).shape[1:])
+            .astype(str(getattr(one, k).dtype).split(".")[1])
+            for k in FIELDS]
+    ns = rng.integers(0, per + 1, (B, n)).astype(np.int32)
+    pool = FS.graph_pool(mesh.devices())
+
+    def dev(*args):
+        return [torch.from_numpy(a).to(home) for a in args]
+
+    progs = (
+        ("warp by pose", SH.graphed_warp_by_pose(cfg, mesh, g_banks, pool),
+         lambda: SH.sharded_warp_by_pose(cfg, mesh)(
+             e_banks, *dev(warps, moved, masks, firsts)),
+         (warps, moved, masks, firsts)),
+        ("compact", SH.graphed_compact(cfg, mesh, g_banks, pool),
+         lambda: SH.sharded_compact(cfg, mesh)(e_banks), ()),
+        ("extract", SH.graphed_extract_by_pose(cfg, mesh, g_banks, per,
+                                               pool),
+         lambda: SH.sharded_extract_by_pose(cfg, mesh, per)(
+             e_banks, *dev(ids))[1:], (ids,)),
+        ("append", SH.graphed_append(cfg, mesh, g_banks, per, pool),
+         lambda: SH.sharded_append(cfg, mesh, per)(
+             e_banks, dict(zip(FIELDS, dev(*slab))), *dev(ns)),
+         tuple(slab) + (ns,)))
+    extracted = 0
+    for name, graph, eager, args in progs:
+        got = graph(*args)
+        want = eager()
+        require(graph.graphed, f"rows: the {name} program is not graphed")
+        require(same_sharded(g_banks, e_banks),
+                f"rows: the {name} graph != the eager mesh program")
+        if name == "extract":
+            require(torch.equal(got[1], want[1]) and all(
+                torch.equal(got[0][k], want[0][k]) for k in FIELDS),
+                "rows: the extract graph's buffers != the eager program's")
+            extracted = int(got[1].sum())
+    require(extracted > 0, "rows: the extract matched nothing")
+    return (f"bank programs on the same mesh: warp by pose, compaction, "
+            f"extract ({extracted} rows) and append graphed, each "
+            f"torch.equal on every cell to the eager mesh program (per-"
+            f"stream inputs); bank programs' pool {pool_mib(pool):.1f} MiB")
+
+
+def rows_check(cfg, mesh, frames, pairs, phase: str) -> dict:
+    """ROW_STREAMS streams, 2 a data row, on `mesh` (2 data rows): each
+    cell one batched bank of its row's streams and each mesh program one
+    torch.func.vmap per cell over them.  The graphed depth-fed step
+    (`graphed_fuse_frame_windowed_packed`, ROW_FRAMES frames) and stereo
+    step (`graphed_fuse_frame_stereo_windowed_packed`, the CLI's --sgm
+    matcher: fused census, ROW_PAIRS pairs): launches by the profiler's
+    records, in all and on each card (per cell and step: each SLIC kernel
+    sp_iters times, B5 and B6 once), where a loop over the streams would
+    launch ROW_STREAMS / 2 times as many; stats and every cell torch.equal
+    to the eager mesh program's; each stream torch.equal (banks and stats)
+    to the same stream driven alone through the same graph on a one-row
+    mesh of its row's cells; then `rows_bank_programs`.  Prints graphed
+    and eager aggregate frames/s (steady, after the capture; no target)
+    and the step pool's MiB.  Returns the graphed drives' device runs."""
     from densesurfelmapping_tpu_torch.parallel import sharding as SH
     from densesurfelmapping_tpu_torch.parallel.multistream import (
         unpack_payload)
     from densesurfelmapping_tpu_torch.pipeline import fuse_step as FS
+    scfg = sgm_config()
     home = mesh.device(0, 0)
-    g_banks = SH.replicate_banks(mesh, cfg, 2)
-    e_banks = SH.replicate_banks(mesh, cfg, 2)
-    step = SH.graphed_fuse_frame_windowed_packed(
-        cfg, mesh, g_banks, FS.graph_pool(mesh.devices()))
-    fn = SH.sharded_fuse_frame_windowed_packed(cfg, mesh)
-    mask = np.ones(cfg.max_keyframes, bool)
-    hw3 = 3 * cfg.height * cfg.width
-    for t in range(n):
-        payload = torch.from_numpy(np.stack([
-            pack_frame_with_aux(cfg, img, dep, pack_aux(pose, 0, mask))
-            for img, dep, pose in (frames[t], frames[t + 1])])).to(home)
-        got = step(payload)
-        bufs, poses, refs, _, masks = unpack_payload(payload, hw3)
-        _, want = fn(e_banks, bufs, poses, refs, masks)
-        require(all(torch.equal(got[k], want[k]) for k in want),
-                f"data rows: frame {t} stats differ")
-    require(step.graphed and step.replays == n
-            and same_sharded(g_banks, e_banks)
-            and int(g_banks.counts().sum()) > 0,
-            "data rows: graphed != the eager mesh program")
-    return (f"{mesh.shape} mesh {[[str(d) for d in r] for r in mesh.grid]}, "
-            f"2 streams x {n} frames (stream 1 a frame ahead): the graph's "
-            f"stats and every shard torch.equal to the eager mesh "
-            f"program's; counts {g_banks.counts().tolist()}")
+    plan = SH.capture_plan(mesh)
+    on_card = {d.index: len(c["cells"]) for d, c in plan["cards"].items()}
+    n_cells = sum(on_card.values())
+    label = (f"{mesh.shape} mesh {[[str(d) for d in r] for r in mesh.grid]}"
+             f", {ROW_STREAMS} streams (2 a row)")
+    total: dict = {}
+    for kind in ("depth-fed", "stereo"):
+        stereo = kind == "stereo"
+        n = ROW_PAIRS if stereo else ROW_FRAMES
+        loads = [row_payloads(cfg, frames, pairs, t, stereo)
+                 for t in range(n)]
+        fb = (2 if stereo else 3) * cfg.height * cfg.width
+
+        def graph(m, banks):
+            pool = FS.graph_pool(m.devices())
+            if stereo:
+                return SH.graphed_fuse_frame_stereo_windowed_packed(
+                    cfg, scfg, True, m, banks, pool), pool
+            return SH.graphed_fuse_frame_windowed_packed(cfg, m, banks,
+                                                         pool), pool
+
+        fn = (SH.sharded_fuse_frame_stereo_windowed_packed(cfg, scfg, True,
+                                                           mesh)
+              if stereo else SH.sharded_fuse_frame_windowed_packed(cfg,
+                                                                   mesh))
+
+        def eager(banks, payload):
+            args = unpack_payload(payload.to(home), fb)
+            return fn(banks, *(args if stereo else args[:3] + args[4:]))[1]
+
+        g_banks = SH.replicate_banks(mesh, cfg, ROW_STREAMS)
+        step, pool = graph(mesh, g_banks)
+        g_stats, ex = executed(lambda: [
+            {k: v.clone() for k, v in step(p).items()} for p in loads])
+        add_runs(total, ex["runs"])
+        per_cell = dict(
+            {k: cfg.sp_iters for k in SLIC}, sgm_axis_scan=0,
+            **dict.fromkeys(("sgm_census_x", "sgm_census_y"), int(stereo)))
+        require(step.graphed and ex["captures"] == 1, f"rows {kind}: "
+                f"graphed {step.graphed}, {ex['captures']} captures")
+        check_runs(ex, {k: v * n_cells for k, v in per_cell.items()}, n,
+                   f"rows {kind}")
+        check_card_runs(ex, per_cell, on_card, n, f"rows {kind}")
+        e_banks = SH.replicate_banks(mesh, cfg, ROW_STREAMS)
+        for t, p in enumerate(loads):
+            want = eager(e_banks, p)
+            require(all(torch.equal(g_stats[t][k], want[k]) for k in want),
+                    f"rows {kind}: frame {t} stats != the eager program's")
+        require(same_sharded(g_banks, e_banks)
+                and (g_banks.counts() > 0).all(),
+                f"rows {kind}: graphed != the eager mesh program")
+        for b in range(ROW_STREAMS):
+            solo = SH.Mesh([mesh.grid[b * mesh.shape["data"]
+                                      // ROW_STREAMS]])
+            s_banks = SH.replicate_banks(solo, cfg, 1)
+            s_step, _ = graph(solo, s_banks)
+            for t, p in enumerate(loads):
+                got = s_step(p[b:b + 1])
+                require(all(torch.equal(g_stats[t][k][b:b + 1],
+                                        got[k].to(home)) for k in got),
+                        f"rows {kind}: stream {b} frame {t} stats != the "
+                        f"stream alone")
+            require(same_stream(g_banks, b, s_banks), f"rows {kind}: "
+                    f"stream {b} != the same stream alone on {solo}")
+            del s_step, s_banks
+        g_fps = steady_rate(graph(mesh, SH.replicate_banks(
+            mesh, cfg, ROW_STREAMS))[0], loads, ROW_STREAMS)
+        r_banks = SH.replicate_banks(mesh, cfg, ROW_STREAMS)
+        e_fps = steady_rate(lambda p: eager(r_banks, p), loads, ROW_STREAMS)
+        unit = "pairs" if stereo else "frames"
+        say(phase, f"rows {kind}, {label}, {n} {unit} at {cfg.height} x "
+            f"{cfg.width}: graphed == the eager mesh "
+            f"program (stats and every cell torch.equal); each stream "
+            f"torch.equal to the stream alone on a one-row mesh of its "
+            f"row's cells; device runs {ex['runs']} ({per_cell} per cell "
+            f"and step on {n_cells} cells, "
+            + ", ".join(f"cuda:{c} {k} cells" for c, k in on_card.items())
+            + f"; {ex['launches']} graph launches, {ex['lost']} left no "
+            f"record); aggregate {g_fps:.2f} frames/s graphed, {e_fps:.2f} "
+            f"eager ({n - 1} steady steps); step pool {pool_mib(pool):.1f} "
+            f"MiB")
+        if not stereo:
+            say(phase, f"rows, {label}: " + rows_bank_programs(
+                cfg, mesh, g_banks, e_banks))
+        del step, g_banks, e_banks, r_banks
+    return total
 
 
 def phase_multicard(frames, pairs, smi: str) -> dict:
@@ -3888,8 +4176,8 @@ def multicard_checks(n_cards: int, frames, pairs) -> dict:
            "host pool": f"{len(frames)} frames"}
 
     if n_cards % 2 == 0:
-        say("multicard", data_rows_check(cfg, make_mesh(n_cards, data=2),
-                                         frames, 4))
+        add_runs(total, rows_check(cfg, make_mesh(n_cards, data=2), frames,
+                                   pairs, "multicard"))
     for n in (n_cards, 2 * n_cards):
         out = dryrun_multichip(n)
         say("multicard", f"entry.dryrun_multichip({n}) on every card: {out}")
@@ -3931,17 +4219,8 @@ def multicard_checks(n_cards: int, frames, pairs) -> dict:
             check_runs(ex, {k: v * n_cells
                             for k, v in per_cell[kind].items()}, steps,
                        f"{label} {kind}")
-            for card, cells_here in on_card.items():
-                got = ex["card_runs"].get(card, {})
-                for k, v in per_cell[kind].items():
-                    want = v * cells_here * (steps + 1)
-                    require(max(runs_floor(want, v * cells_here,
-                                           ex["lost"]), min(v, 1))
-                            <= got.get(k, 0) <= want,
-                            f"{label} {kind}: cuda:{card} ran {k} "
-                            f"{got.get(k, 0)} times, want {want} "
-                            f"({v} per step on each of its {cells_here} "
-                            f"cells)")
+            check_card_runs(ex, per_cell[kind], on_card, steps,
+                            f"{label} {kind}")
             e = run(kind, make(kind, mesh, EagerSharded))
             v = run(kind, make(kind, virtual))
             require(same_sharded(drv.bank, e.bank), f"{label} {kind}: "
@@ -4291,6 +4570,12 @@ def main() -> None:
                 ms_1=b["us_1"] / 1e3, ms=b["us_n"] / 1e3,
                 bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                 max_abs_err=b["max_abs_err"])
+            if "wide_route" in b:
+                w = b["wide_route"]
+                entry["batched"]["wide_route"] = dict(
+                    route="scan_lines_kernel grid z = stream + one combine "
+                    "pass", streams=w["streams"], d=w["d"],
+                    ms_1=w["us_1"] / 1e3, ms=w["us_n"] / 1e3)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -123,14 +123,18 @@ struct VolumeCost {
   __device__ float operator()(int t, int r, int d) const {
     return __bfloat162float(v[(static_cast<size_t>(t) * R + r) * D + d]);
   }
+  // the volume `off` elements on (the next stream's, off = L R D)
+  __device__ VolumeCost at(size_t off) const { return {v + off, R, D}; }
 };
 
-// B4 line kernel: one block per (line, slab); slab = orientation * g +
-// direction, direction k shifting its row by rolls[k] per step.  Steps t run
-// along axis 0 (L), rows r along axis 1 (R); the line of a block is (t, r) ->
-// (t + dt, r + roll) from a start on the first step (any r) or on the border
-// row the roll restarts (r = 0 for roll +1, R - 1 for roll -1).  Writes L' of
-// every (t, r, d) to scratch[slab][(t * R + r) * D + d].
+// B4 line kernel: one block per (line, slab, stream); slab = orientation *
+// g + direction, direction k shifting its row by rolls[k] per step.  Steps t
+// run along axis 0 (L), rows r along axis 1 (R); the line of a block is (t,
+// r) -> (t + dt, r + roll) from a start on the first step (any r) or on the
+// border row the roll restarts (r = 0 for roll +1, R - 1 for roll -1).  The
+// stream is grid z: stream z's volume starts z L R D elements on, and its
+// 2g slabs follow the 2g slabs of stream z - 1.  Writes L' of every (t, r, d)
+// to scratch[z * 2g + slab][(t * R + r) * D + d].
 // entry: 0 none; 1 forward orientation at d + min_d == t (scan axis =
 // image x); 2 roll == +1 directions at d + min_d == r (rows = image x).
 template <class Cost, bool BF16>
@@ -157,14 +161,16 @@ __global__ void scan_lines_kernel(Cost cost, float* __restrict__ scratch,
   }
   const int d = threadIdx.x;
   const size_t slab_size = static_cast<size_t>(L) * R * D;
-  float* out = scratch + slab * slab_size;
+  const Cost c_at = cost.at(blockIdx.z * slab_size);
+  float* out =
+      scratch + (static_cast<size_t>(blockIdx.z) * 2 * g + slab) * slab_size;
   const float p1v = BF16 ? round_bf16(p1) : p1;
   const float p2v = BF16 ? round_bf16(p2) : p2;
 
   float carry = 0.0f;
   int buf = 0;
   for (; t >= 0 && t < L && r >= 0 && r < R; t += dt, r += roll) {
-    const float c = d < D ? cost(t, r, d) : 0.0f;
+    const float c = d < D ? c_at(t, r, d) : 0.0f;
     float nxt = dp_step<BF16>(carry, c, D, p1v, p2v, sl[buf], smin[buf]);
     if (d < D) {
       const bool restart = (entry == 1 && o == 0 && d + min_d == t) ||
@@ -191,14 +197,19 @@ __device__ __forceinline__ float orientation_total(const float* s,
   return round_bf16(tot);
 }
 
-// B4 combine: out[i] = f32(bf16(forward total)) + f32(bf16(backward total)).
+// B4 combine: out[i] = f32(bf16(forward total)) + f32(bf16(backward total))
+// over the `total` = streams x n elements, element j of stream b (i = b n +
+// j) from that stream's 2g slabs of n.
 template <bool BF16>
 __global__ void combine_axis_kernel(const float* __restrict__ scratch,
-                                    float* __restrict__ out, size_t n, int g) {
+                                    float* __restrict__ out, size_t n,
+                                    size_t total, int g) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    out[i] = orientation_total<BF16>(scratch, n, g, i) +
-             orientation_total<BF16>(scratch + g * n, n, g, i);
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t b = i / n, j = i - b * n;
+    const float* s = scratch + b * 2 * g * n;
+    out[i] = orientation_total<BF16>(s, n, g, j) +
+             orientation_total<BF16>(s + g * n, n, g, j);
   }
 }
 
@@ -1626,17 +1637,20 @@ __global__ void __launch_bounds__(kYThreads, 1)
 
 extern "C" {
 
-// B4 for 128 < D <= 1024: PR 2's line kernel and combine pass over an f32
-// scratch of 2 * g * L * R * D floats (any roll set of 1-3 shifts).
-int sgm_axis_lines(const void* v, float* scratch, float* out, int L, int R,
-                   int D, int g, int roll0, int roll1, int roll2, float p1,
-                   float p2, int carry_bf16, int entry, int min_d,
+// B4 for 128 < D <= 1024 over B streams' volumes (B, L, R, D) -> f32 out
+// (B, L, R, D): PR 2's line kernel (grid z = stream) and combine pass over
+// an f32 scratch of B * 2 * g * L * R * D floats (any roll set of 1-3
+// shifts); two launches whatever B is.
+int sgm_axis_lines(const void* v, float* scratch, float* out, int nb, int L,
+                   int R, int D, int g, int roll0, int roll1, int roll2,
+                   float p1, float p2, int carry_bf16, int entry, int min_d,
                    void* stream) {
-  if (D < 1 || D > kMaxThreads || g < 1 || g > 3) return cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxThreads || g < 1 || g > 3 || nb < 1 || nb > 65535)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const VolumeCost cost{static_cast<const __nv_bfloat16*>(v), R, D};
   const int threads = line_threads(D);
-  const dim3 grid(R + L - 1, 2 * g);
+  const dim3 grid(R + L - 1, 2 * g, nb);
   if (carry_bf16) {
     scan_lines_kernel<VolumeCost, true>
         <<<grid, threads, line_smem(threads), s>>>(
@@ -1651,13 +1665,16 @@ int sgm_axis_lines(const void* v, float* scratch, float* out, int L, int R,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(L) * R * D;
-  const int blocks = static_cast<int>((n + 255) / 256 < 132 * 16
-                                          ? (n + 255) / 256
+  const size_t total = n * nb;
+  const int blocks = static_cast<int>((total + 255) / 256 < 132 * 16
+                                          ? (total + 255) / 256
                                           : 132 * 16);
   if (carry_bf16) {
-    combine_axis_kernel<true><<<blocks, 256, 0, s>>>(scratch, out, n, g);
+    combine_axis_kernel<true><<<blocks, 256, 0, s>>>(scratch, out, n, total,
+                                                     g);
   } else {
-    combine_axis_kernel<false><<<blocks, 256, 0, s>>>(scratch, out, n, g);
+    combine_axis_kernel<false><<<blocks, 256, 0, s>>>(scratch, out, n, total,
+                                                      g);
   }
   return static_cast<int>(cudaGetLastError());
 }

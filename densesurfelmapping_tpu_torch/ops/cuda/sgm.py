@@ -9,7 +9,7 @@ falls back.  `LAUNCHES` counts the calls of each kernel entry:
 * sgm_axis_scan (B4): the scan of a materialized volume; for D <= 128 the
   warp step of B5/B6 (a line per warp pair for the roll set (0), B5's
   bands for (0, +1, -1)), for 128 < D <= 1024 the line kernel and its
-  combine pass;
+  combine pass (one call, one count: two launches);
 * sgm_census_x (B6): the horizontal family of the census aggregate (one
   warp per row and orientation, meeting at mid-row);
 * sgm_census_y (B5): the vertical + diagonal family (one block per SM,
@@ -22,13 +22,14 @@ for all of them (a launch adds one to its count however many streams it
 runs), where the JAX package's `jax.vmap` of the fuse step gives each
 `pallas_call` a stream axis on its grid: B6 and B4's line kernel take the
 stream on grid y; B5 and B4's band kernel, cooperative launches of one
-block per SM, keep their grid and walk the streams in each block.  Inside
-a `torch.func.vmap` of the stereo step (`parallel/multistream.py`) a CUDA
-call reaches the batched launch through the `vmap` rule of an
-autograd.Function (`_vmappable`); on a CPU tensor the plain twins run
-under the vmap.  Only B4's wide route (128 < D <= 1024, in no measured
-configuration) launches its kernels once per stream, and counts each
-launch.
+block per SM, keep their grid and walk the streams in each block; B4's
+wide route (128 < D <= 1024, in no measured configuration) takes the
+stream on its line kernel's grid z and covers every stream in one combine
+pass.  Inside a `torch.func.vmap` of the stereo step
+(`parallel/multistream.py`; a mesh cell's streams in
+`parallel/sharding.py`) a CUDA call reaches the batched launch through the
+`vmap` rule of an autograd.Function (`_vmappable`); on a CPU tensor the
+plain twins run under the vmap.
 
 The launch geometry comes from `axis_plan`, `census_x_plan` and
 `census_y_plan`, plain Python that the CPU tests check.
@@ -50,7 +51,7 @@ LAUNCHES = {"sgm_axis_scan": 0, "sgm_census_y": 0, "sgm_census_x": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sgm_axis_lines": [_P] * 3 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P],
+    "sgm_axis_lines": [_P] * 3 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_axis_warp": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 8 + [_P],
     "sgm_census_x": [_P] * 4 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_census_y": [_P] * 5 + [_I] * 8 + [_F, _F] + [_I] * 7 + [_P],
@@ -117,8 +118,11 @@ class AxisPlan(NamedTuple):
     slab to the other scan (`slab_shape`: one stream's; a launch holds
     `streams` of them).
     route "lines" (128 < D <= 1024, any 1-3 rolls): PR 2's line kernel,
-    one block of `threads` per (line, direction), and a combine pass over
-    an f32 scratch of `scratch_shape`, launched once per stream."""
+    one block of `threads` per (line, direction) of a stream (`blocks` a
+    stream, the stream on grid z), and a combine pass over an f32 scratch
+    of `scratch_shape`: each stream's 2g slabs of (L, R, D) in stream
+    order, 24 L R D bytes a stream with g = 3 (11.5 GB at KITTI size and
+    D = 1024); two launches for all the streams."""
     route: str
     g: int
     blocks: int
@@ -130,7 +134,7 @@ class AxisPlan(NamedTuple):
     mid: int
     slab_shape: tuple          # bf16 (L, R, 128), or () on the lines route
     halo_bytes: int
-    scratch_shape: tuple       # f32 (2g, L R D), or () on the warp route
+    scratch_shape: tuple       # f32 (B 2g, L R D), or () on the warp route
     streams: int = 1           # volumes of one launch
 
 
@@ -165,7 +169,8 @@ def axis_plan(L: int, R: int, D: int, rolls,
         return AxisPlan(route="lines", g=g, blocks=(R + L - 1) * 2 * g,
                         threads=threads, smem=4 * (2 * threads + 64),
                         nbands=0, ncols=0, cpw=0, mid=L // 2, slab_shape=(),
-                        halo_bytes=0, scratch_shape=(2 * g, L * R * D),
+                        halo_bytes=0,
+                        scratch_shape=(streams * 2 * g, L * R * D),
                         streams=streams)
     census_y_rolls(r[:g])
     common = dict(route="warp", g=g, mid=L // 2, slab_shape=(L, R, 128),
@@ -235,18 +240,14 @@ def _launch_axis_scan(v, rolls, p1, p2, carry_bf16, entry, min_d):
             int(min_d))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan.route == "lines":
-        # the wide route has no stream axis: its line kernel and combine
-        # pass run once per stream (each launch counted), on one scratch
-        # in stream order
+        # one launch of the line kernel (grid z = stream) and one of the
+        # combine pass for all the streams, each stream on its own slabs
         scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
                               device=dev)
-        n = L * R * D
-        for k in range(nb):
-            err = _lib().sgm_axis_lines(
-                ptr + 2 * n * k, scratch.data_ptr(),
-                out.data_ptr() + 4 * n * k, L, R, D, plan.g, r0, r1, r2,
-                *args, stream)
-            _launched("sgm_axis_scan", err)
+        err = _lib().sgm_axis_lines(
+            ptr, scratch.data_ptr(), out.data_ptr(), nb, L, R, D, plan.g,
+            r0, r1, r2, *args, stream)
+        _launched("sgm_axis_scan", err)
         return out
     if ptr % 16:
         raise ValueError("axis_scan stages 16-byte chunks of the "

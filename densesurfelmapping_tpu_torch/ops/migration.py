@@ -40,9 +40,11 @@ def extract_by_pose(bank: SurfelBank, pose_ids: torch.Tensor,
     buf = {}
     for k in FIELDS:
         arr = getattr(bank, k)
+        # out of place: under torch.func.vmap (a mesh cell's streams) the
+        # zeros are not batched
         slab = torch.zeros((buffer_size + 1,) + arr.shape[1:],
-                           dtype=arr.dtype, device=arr.device)
-        slab.index_copy_(0, dest, arr)
+                           dtype=arr.dtype, device=arr.device
+                           ).index_copy(0, dest, arr)
         buf[k] = slab[:buffer_size]
 
     # kill extracted rows in place; holes are reclaimed by compact_bank

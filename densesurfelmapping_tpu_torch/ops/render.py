@@ -25,15 +25,23 @@ def render_prior_depth(config: SurfelMapConfig, bank: SurfelBank,
 
     Only rows with update_times >= min_updates contribute (the reference's
     stability threshold, `surfel_map.cpp:1159`).  `reduce` (optional)
-    merges the coarse (hs, ws) z-buffer (inf = empty cell) with those of the
-    other shards of a sharded bank before the upsample, the JAX package's
-    `lax.pmin` over its mesh axis (`parallel/sharding.py` passes an exact
-    min)."""
-    h, w = config.height, config.width
-    hs, ws = -(-h // stride), -(-w // stride)
+    merges the coarse (hs, ws) z-buffer (inf = empty cell) with others
+    before the upsample.  The sharded stereo steps render each shard's
+    z-buffer (`coarse_zbuffer`), merge them (the JAX package's `lax.pmin`)
+    and upsample the merged one (`upsample_prior`)."""
     coarse = coarse_zbuffer(config, bank, pose, stride, min_updates)
     if reduce is not None:
         coarse = reduce(coarse)
+    return upsample_prior(config, coarse, stride)
+
+
+def upsample_prior(config: SurfelMapConfig, coarse: torch.Tensor,
+                   stride: int = 8) -> torch.Tensor:
+    """The (H, W) prior depth of a coarse (hs, ws) z-buffer: each cell's
+    depth repeated over its stride x stride pixels, 0 where it is empty
+    (inf)."""
+    h, w = config.height, config.width
+    hs, ws = -(-h // stride), -(-w // stride)
     coarse = torch.where(torch.isfinite(coarse), coarse, 0.0)
     return coarse[:, None, :, None].expand(hs, stride, ws, stride).reshape(
         hs * stride, ws * stride)[:h, :w]

@@ -175,13 +175,21 @@ def slab_segmentation(config: SurfelMapConfig, n_slabs: int,
     into the full-frame (seeds, assignment) each shard needs.  Returns one
     (seeds, assignment) per shard, on its device.  Both passes run on the
     shards' streams (`sharding.cells`) inside a mesh program over the
-    devices."""
+    devices: the mesh steps' `_slab_segmentation` for one stream."""
     devices = devices or [image.device] * n_slabs
     with sharding.mesh_program([image.device] + list(devices)):
-        return _slab_segmentation(config, n_slabs, image, depth, devices)
+        out = _slab_segmentation(config, n_slabs, image[None], depth[None],
+                                 devices)
+    return [(SuperpixelState(**{k: v[0] for k, v in seeds.items()}),
+             assignment[0]) for seeds, assignment in out]
 
 
 def _slab_segmentation(config, n_slabs, image, depth, devices):
+    """The column-slab segmentation of a data row's streams: image and
+    depth (B_r, H, W) on the row's first cell; on each cell, one
+    torch.func.vmap over the streams segments its slab (the JAX
+    per_stream's vmap of `slab_segmentation`), then one gathers the owned
+    columns.  Returns per cell (seed fields, assignment), batched."""
     ext = _extended_geometry(config, n_slabs)
     sp, own, halo = config.sp_size, ext["own"], ext["halo"]
     C = config.sp_cols
@@ -193,29 +201,32 @@ def _slab_segmentation(config, n_slabs, image, depth, devices):
     for s in sharding.cells(devices):
         dev = devices[s]
         x0 = s * own * sp
-        img_s = sharding._to(img_e[:, x0:x0 + slab_w], dev).contiguous()
-        dep_s = sharding._to(dep_e[:, x0:x0 + slab_w], dev).contiguous()
+        img_s = sharding._to(img_e[..., x0:x0 + slab_w], dev).contiguous()
+        dep_s = sharding._to(dep_e[..., x0:x0 + slab_w], dev).contiguous()
         g = slab_geometry(config, n_slabs, s, dev)
-        seeds, assignment = superpixel.run_slic(config, img_s, dep_s,
-                                                use_kernels=False, geom=g)
-        seeds, _ = normals.compute_seed_planes(config, seeds, assignment,
-                                               dep_s, geom=g)
-        owned.append((_columns(seeds, halo, halo + own),
-                      assignment[:, halo * sp:(halo + own) * sp]))
+
+        def segment(img, dep, g=g):
+            seeds, assignment = superpixel.run_slic(config, img, dep,
+                                                    use_kernels=False, geom=g)
+            seeds, _ = normals.compute_seed_planes(config, seeds, assignment,
+                                                   dep, geom=g)
+            return (sharding._fields(_columns(seeds, halo, halo + own)),
+                    assignment[:, halo * sp:(halo + own) * sp])
+        owned.append(torch.func.vmap(segment)(img_s, dep_s))
 
     # the gather: every shard concatenates all shards' owned columns, then
     # crops the divisibility padding back to the config's grid
-    out = []
-    for s in sharding.cells(devices):
-        dev = devices[s]
-        seeds = SuperpixelState(**{
-            f.name: torch.cat([sharding._to(getattr(o[0], f.name), dev)
-                               for o in owned], dim=1)[:, :C]
-            for f in dataclasses.fields(SuperpixelState)})
-        assignment = torch.cat([sharding._to(o[1], dev) for o in owned],
+    def gather(parts):
+        seeds = {k: torch.cat([p[0][k] for p in parts], dim=1)[:, :C]
+                 for k in parts[0][0]}
+        assignment = torch.cat([p[1] for p in parts],
                                dim=1)[:, :config.padded_width]
-        out.append((seeds, assignment))
-    return out
+        return seeds, assignment
+
+    return [torch.func.vmap(gather)([
+        ({k: sharding._to(v, devices[s]) for k, v in seeds.items()},
+         sharding._to(assignment, devices[s])) for seeds, assignment in owned])
+        for s in sharding.cells(devices)]
 
 
 def sharded_fuse_frame_framestage(config: SurfelMapConfig,
@@ -229,15 +240,15 @@ def sharded_fuse_frame_framestage(config: SurfelMapConfig,
     n = mesh.shape["surfel"]
 
     def step(banks: sharding.ShardedBanks, frames):
-        per_stream = []
         with sharding.mesh_program(banks.devices()):
-            for b, row in enumerate(banks.shards):
-                fr = frames[b]
-                seg = slab_segmentation(config, n, fr[0].image, fr[0].depth,
-                                        [bank.device for bank in row])
-                per_stream.append(sharding._fuse_stream(config, row, fr,
-                                                        segmented=seg))
-            return banks, sharding._stack_streams(per_stream)
+            return banks, sharding._stack_rows(banks, [
+                sharding._fuse_row(
+                    config, row, sharding._frame_front,
+                    sharding._frame_inputs(frames[r]),
+                    segmented=_slab_segmentation(
+                        config, n, frames[r][0].image, frames[r][0].depth,
+                        [b.device for b in row]))
+                for r, row in enumerate(banks.rows)])
     return step
 
 
@@ -249,21 +260,24 @@ def sharded_fuse_frame_framestage_windowed_packed(config: SurfelMapConfig,
 
     Call: (banks, bufs (B, 3HW) u8, poses (B,4,4) f32, refs (B,) i32,
     masks (B, max_keyframes) bool) -> (banks, stats)."""
+    from ..pipeline.fuse_step import ingest_frame
     n = mesh.shape["surfel"]
+    front = sharding._packed_front(config)
 
     def step(banks: sharding.ShardedBanks, bufs, poses, refs, masks):
-        per_stream = []
         with sharding.mesh_program(banks.devices()):
-            for b, row in enumerate(banks.shards):
-                frames = sharding._packed_frames(config, row, bufs[b],
-                                                 poses[b], refs[b])
-                seg = slab_segmentation(config, n, frames[0].image,
-                                        frames[0].depth,
-                                        [bank.device for bank in row])
-                per_stream.append(sharding._fuse_stream(
-                    config, row, frames, segmented=seg,
-                    pose_masks=sharding._replicate(masks[b], row)))
-            return banks, sharding._stack_streams(per_stream)
+            per_row = []
+            for row, (lo, hi) in zip(banks.rows, banks.spans()):
+                inputs = sharding._packed_inputs(config, row, bufs[lo:hi],
+                                                 poses[lo:hi], refs[lo:hi])
+                # the row's frames on its first cell, for the slabs
+                planes = ingest_frame(config, *inputs[0][:2])
+                per_row.append(sharding._fuse_row(
+                    config, row, front, inputs,
+                    masks=sharding._replicate(masks[lo:hi], row),
+                    segmented=_slab_segmentation(
+                        config, n, *planes, [b.device for b in row])))
+            return banks, sharding._stack_rows(banks, per_row)
     return step
 
 

@@ -38,7 +38,12 @@ def make_banks(config: SurfelMapConfig, n_streams: int,
     """Empty per-stream banks: every field gains a leading (B,) axis and
     `count` is (B,) i32; dead rows carry last_update = -1 as in
     `SurfelBank.empty`."""
-    one = SurfelBank.empty(config.surfel_capacity, device)
+    return empty_banks(config.surfel_capacity, n_streams, device)
+
+
+def empty_banks(capacity: int, n_streams: int, device) -> SurfelBank:
+    """`make_banks` of `capacity` rows a stream (a mesh cell's slabs)."""
+    one = SurfelBank.empty(capacity, device)
     return SurfelBank(**{k: getattr(one, k).expand(
         (n_streams,) + getattr(one, k).shape).clone() for k in _BANK_KEYS})
 
@@ -97,12 +102,14 @@ def stack_frames(frames, device="cuda") -> Tuple[torch.Tensor, ...]:
 def _vmap_banks(fn):
     """torch.func.vmap of fn(bank, *args) over the stream axis of a
     batched bank (passed in as its fields, so that the in-place updates of
-    the single-frame ops land in the fleet's banks)."""
+    the single-frame ops land in the fleet's banks) and of every argument
+    (tensors or containers of them; None passes through unbatched)."""
     def one(fields, *args):
         return fn(SurfelBank(**fields), *args)
 
     def run(banks: SurfelBank, *args):
-        return torch.func.vmap(one)(
+        return torch.func.vmap(one, in_dims=(0,) + tuple(
+            None if a is None else 0 for a in args))(
             {k: getattr(banks, k) for k in _BANK_KEYS}, *args)
     return run
 
@@ -143,6 +150,17 @@ def unpack_payload(payload: torch.Tensor, frame_bytes: int):
             aux[:, AUX_HEAD_BYTES:].bool())
 
 
+def unpack_frames(config: SurfelMapConfig, bufs: torch.Tensor):
+    """Decode of (B, 3 h w) u8 packed frames (`core.state.pack_frame`
+    rows): (images (B, h, w) u8, depths (B, h, w) f16); the batched
+    `fuse_step.unpack_frame`, outside any vmap (a dtype view has no
+    batching rule in every torch release)."""
+    b = bufs.shape[0]
+    h, w = config.height, config.width
+    return (bufs[:, :h * w].reshape(b, h, w),
+            _bytes_as(bufs[:, h * w:3 * h * w], torch.float16).view(b, h, w))
+
+
 def _fuse_windowed(config, bank, image_u8, depth_f16, pose, frame_index,
                    pose_mask):
     return fuse_step.fuse_frame_windowed(config, bank, image_u8, depth_f16,
@@ -155,13 +173,10 @@ def batched_onebuf_step(config: SurfelMapConfig, banks: SurfelBank,
     u8 payload (each row `core.state.pack_frame_with_aux`): banks updated
     in place; returns the stats, (B,) each.  The batched
     `fuse_step.fuse_frame_onebuf`."""
-    b = payload.shape[0]
-    h, w = config.height, config.width
-    frames, poses, refs, _, masks = unpack_payload(payload, 3 * h * w)
-    images = frames[:, :h * w].reshape(b, h, w)
-    depths = _bytes_as(frames[:, h * w:], torch.float16).view(b, h, w)
+    frames, poses, refs, _, masks = unpack_payload(
+        payload, 3 * config.height * config.width)
     return _vmap_banks(functools.partial(_fuse_windowed, config))(
-        banks, images, depths, poses, refs, masks)
+        banks, *unpack_frames(config, frames), poses, refs, masks)
 
 
 def graphed_onebuf_step(config: SurfelMapConfig, banks: SurfelBank,

@@ -5,13 +5,19 @@ Counterpart of the JAX package's `parallel/sharding.py`.  The mesh is a
 are single-controller too):
 
   * axis "data"   - independent camera streams: each row of the grid owns
-    some streams' frames and bank rows.
-  * axis "surfel" - each stream's surfel bank split into equal row slabs, one
-    `SurfelBank` per (stream, shard) on that shard's device.  `fuse_surfels`
-    is embarrassingly parallel over surfels against a replicated frame, so
-    the only collective of the fuse step is an OR (a max over int32) of the
-    per-seed fused flags before new-surfel extraction.  New surfels go to
-    shards round-robin by seed index, so shards stay balanced.
+    a contiguous block of the streams' frames and bank rows.
+  * axis "surfel" - each stream's surfel bank split into equal row slabs;
+    a cell holds its row's streams' slabs as one batched `SurfelBank`
+    (`ShardedBanks`).  `fuse_surfels` is embarrassingly parallel over
+    surfels against a replicated frame, so the only collective of the fuse
+    step is an OR (a max over int32) of the per-seed fused flags before
+    new-surfel extraction.  New surfels go to shards round-robin by seed
+    index, so shards stay balanced.
+
+Every pass of a mesh program is one torch.func.vmap per cell over its
+row's streams, as the JAX package runs `jax.vmap(per_stream)` inside its
+`shard_map`: a kernel reached inside (B1-B3, B5, B6, B4) launches once per
+cell for the row's streams, through its `vmap` rule.
 
 The collectives of the JAX package are explicit tensor operations across
 the shards' tensors here (`_all_reduce`): the max of the fused flags, the
@@ -27,7 +33,7 @@ same forks and joins are the edges of one CUDA graph over every card.
 
 The superpixel/plane-fit stage, and the stereo front-end, run replicated on
 every shard's device, the JAX package's policy: on CUDA that is B1-B3 (and
-B5/B6) once per shard and frame.  `parallel/frame_sharding.py` splits the
+B5/B6) once per cell and step.  `parallel/frame_sharding.py` splits the
 segmentation by image columns instead.
 """
 
@@ -44,9 +50,10 @@ import numpy as np
 import torch
 
 from ..config import SurfelMapConfig
-from ..core.state import FIELDS, FrameInput, SurfelBank
+from ..core.state import FIELDS, FrameInput, SuperpixelState, SurfelBank
 from ..ops import fusion, normals, superpixel
 from ..ops import warp as warp_ops
+from . import multistream
 
 
 class Mesh:
@@ -107,59 +114,97 @@ def make_mesh(n_devices: int | None = None, data: int = 1,
 
 @dataclasses.dataclass
 class ShardedBanks:
-    """Per-stream banks laid out for a mesh: `shards[b][s]` is stream b's
-    slab on shard s, a `SurfelBank` of capacity / n_shards rows on that
-    shard's device with its own count.  The host view of a stream's bank
-    is the shards' rows in shard order (`live_rows`)."""
+    """Per-stream banks laid out for a mesh, one batched bank per cell:
+    `rows[r][s]` is data row r's bank on cell (r, s), a `SurfelBank` whose
+    fields are (B_r, rows_per_shard, ...) and whose count is (B_r,), for
+    the row's B_r streams in stream order (the fleet's layout,
+    `multistream.make_banks`; a cell's (B_local, N / n_surfel) slab of the
+    JAX package's bank).  `shards[b][s]` is stream b's slab on shard s,
+    views into its row's bank (`multistream.stream_bank`), so code of one
+    stream reads and writes the same rows.  A row given as one stream's
+    unbatched banks (count ()) becomes a row of that stream, as views.
+    The host view of a stream's bank is its shards' rows in shard order
+    (`live_rows`)."""
 
-    shards: List[List[SurfelBank]]
+    rows: List[List[SurfelBank]]
+
+    def __post_init__(self):
+        self.rows = [[b if b.count.dim() else _one_stream(b) for b in row]
+                     for row in self.rows]
+
+    def spans(self) -> List[tuple]:
+        """(first stream, end) of each data row's streams."""
+        out, lo = [], 0
+        for row in self.rows:
+            out.append((lo, lo + row[0].count.shape[0]))
+            lo = out[-1][1]
+        return out
+
+    @property
+    def shards(self) -> List[List[SurfelBank]]:
+        """`[b][s]`: stream b's slab on shard s, views into its row."""
+        return [[multistream.stream_bank(bank, j) for bank in row]
+                for row in self.rows for j in range(row[0].count.shape[0])]
 
     @property
     def n_streams(self) -> int:
-        return len(self.shards)
+        return self.spans()[-1][1]
 
     @property
     def n_shards(self) -> int:
-        return len(self.shards[0])
+        return len(self.rows[0])
 
     @property
     def rows_per_shard(self) -> int:
-        return self.shards[0][0].capacity
+        return self.rows[0][0].position.shape[1]
 
     def counts(self) -> np.ndarray:
         """(B, n_shards) counts on the host (reads the device)."""
-        return np.array([[int(b.count) for b in row] for row in self.shards],
-                        np.int64)
+        return np.concatenate([np.stack([b.count.cpu().numpy() for b in row],
+                                        axis=1) for row in self.rows]
+                              ).astype(np.int64)
 
     def host(self, field: str) -> np.ndarray:
         """(B, n_shards * rows, ...) host copy of one field: every shard's
         rows in shard order (the JAX package's (B, N) layout)."""
-        return np.stack([np.concatenate([getattr(b, field).cpu().numpy()
-                                         for b in row])
-                         for row in self.shards])
+        return np.concatenate([np.concatenate(
+            [getattr(b, field).cpu().numpy() for b in row], axis=1)
+            for row in self.rows])
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for row in self.shards for b in row
+                   for row in self.rows for b in row
                    for _, t in b.field_arrays())
 
     def devices(self) -> List[torch.device]:
-        """The distinct devices of the banks, in (stream, shard) order
-        (stream 0's first shard, the home cell, first)."""
-        return list(dict.fromkeys(b.device for row in self.shards
+        """The distinct devices of the banks, in (row, shard) order (row
+        0's first shard, the home cell, first)."""
+        return list(dict.fromkeys(b.device for row in self.rows
                                   for b in row))
+
+
+def _one_stream(bank: SurfelBank) -> SurfelBank:
+    """One stream's bank as a batched bank of that stream (views)."""
+    return SurfelBank(**{k: t[None] for k, t in _fields(bank).items()})
+
+
+def _fields(obj) -> dict:
+    """A dataclass's tensors by field name (to pass through a vmap)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 def replicate_banks(mesh: Mesh, config: SurfelMapConfig,
                     n_streams: int) -> ShardedBanks:
-    """Empty per-stream banks laid out for the mesh.  Capacity is padded so
-    each surfel shard has equal rows; stream b lives on data row
-    b * data // n_streams."""
+    """Empty per-stream banks laid out for the mesh: one batched bank per
+    cell.  Capacity is padded so each surfel shard has equal rows; stream
+    b lives on data row b * data // n_streams (the JAX `P("data")`
+    split: each row holds a contiguous block of the streams)."""
     n = mesh.shape["surfel"]
     rows = -(-config.surfel_capacity // n)
     return ShardedBanks([
-        [SurfelBank.empty(rows, mesh.device(_row(mesh, b, n_streams), s))
-         for s in range(n)] for b in range(n_streams)])
+        [multistream.empty_banks(rows, hi - lo, mesh.device(r, s))
+         for s in range(n)]
+        for r, (lo, hi) in enumerate(_row_spans(mesh, n_streams))])
 
 
 def _row(mesh: Mesh, stream: int, n_streams: int) -> int:
@@ -167,6 +212,13 @@ def _row(mesh: Mesh, stream: int, n_streams: int) -> int:
         raise ValueError(f"{n_streams} streams do not split over "
                          f"{mesh.shape['data']} data rows")
     return stream * mesh.shape["data"] // n_streams
+
+
+def _row_spans(mesh: Mesh, n_streams: int) -> List[tuple]:
+    """(first stream, end) of each data row's streams (`_row`)."""
+    rows = [_row(mesh, b, n_streams) for b in range(n_streams)]
+    return [(rows.index(r), n_streams - rows[::-1].index(r))
+            for r in range(mesh.shape["data"])]
 
 
 def live_rows(field, counts) -> np.ndarray:
@@ -183,17 +235,12 @@ def live_rows(field, counts) -> np.ndarray:
 
 def shard_frames(mesh: Mesh, frames: FrameInput) -> List[List[FrameInput]]:
     """A batched FrameInput (leading stream axis) placed on the mesh:
-    `[b][s]` is stream b's frame on the device of its shard s (replicated
-    over "surfel")."""
-    n_streams = frames.image.shape[0]
-    out = []
-    for b in range(n_streams):
-        row = mesh.grid[_row(mesh, b, n_streams)]
-        out.append([FrameInput(
-            image=_to(frames.image[b], d), depth=_to(frames.depth[b], d),
-            pose=_to(frames.pose[b], d),
-            frame_index=_to(frames.frame_index[b], d)) for d in row])
-    return out
+    `[r][s]` is data row r's streams' frames, batched, on the device of
+    its cell s (replicated over "surfel")."""
+    spans = _row_spans(mesh, frames.image.shape[0])
+    return [[FrameInput(**{k: _to(t[lo:hi], d)
+                           for k, t in _fields(frames).items()})
+             for d in row] for row, (lo, hi) in zip(mesh.grid, spans)]
 
 
 # ----------------------------------------------------------------------
@@ -332,71 +379,112 @@ def _all_reduce(tensors: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
 
 
 def _replicate(t: torch.Tensor, row: Sequence[SurfelBank]):
-    """One copy of t on every shard's device."""
+    """One copy of t on every cell's device."""
     return [_to(t, b.device) for b in row]
 
 
-def _stack_streams(per_stream: List[dict]) -> dict:
-    """Per-stream stats dicts -> one dict of (B,) tensors on the device of
-    stream 0's first shard."""
-    dev = per_stream[0]["n_live"].device
-    return {k: torch.stack([_to(st[k], dev) for st in per_stream])
-            for k in per_stream[0]}
+def _stack_rows(banks: ShardedBanks, per_row: List[dict]) -> dict:
+    """The data rows' stats dicts ((B_r,) each) -> one dict of (B,)
+    tensors in stream order on the home cell."""
+    home = banks.rows[0][0].device
+    return {k: torch.cat([_to(st[k], home) for st in per_row])
+            for k in per_row[0]}
 
 
 # ----------------------------------------------------------------------
-# the fuse step of one stream over its shards
+# the fuse step of one data row: one vmapped pass per cell over its streams
 # ----------------------------------------------------------------------
-def _fuse_stream(config: SurfelMapConfig, row: List[SurfelBank],
-                 frames: Sequence[FrameInput], pose_masks=None,
-                 segmented=None) -> dict:
-    """The sharded fuse step of one stream: updates `row` (its shards'
-    banks) in place and returns the stream's stats.
+def _fuse_row(config: SurfelMapConfig, row: List[SurfelBank], front,
+              inputs: Sequence[tuple], masks=None, segmented=None) -> dict:
+    """The sharded fuse step of one data row's streams: updates `row` (its
+    cells' batched banks) in place and returns the row's stats, (B_r,)
+    each, on its first cell.  The JAX package's `jax.vmap(per_stream)`
+    inside its `shard_map`: every pass is one torch.func.vmap over the
+    row's streams on each cell (`cells`), so each kernel it reaches
+    launches once per cell with the streams on its stream axis.
 
-    frames: the stream's frame on each shard's device.  segmented
-    (optional, one (seeds, assignment) per shard) is a precomputed
-    full-frame segmentation (`parallel/frame_sharding.py`); None runs the
-    stage replicated on every shard.  Each pass over the shards runs on
-    their streams (`cells`); the collectives between the passes."""
+    Pass 1: `front(*inputs[s])` -> (a FrameInput, extra stats) decodes one
+    stream's frame on cell s (`inputs[s]`: the row's tensors on that
+    cell); then the frame stage (SLIC and the plane fit, or `segmented[s]`,
+    the (seed fields, assignment) of the column-sharded stage) and
+    `fuse_surfels` against the cell's slab.  The collective, outside the
+    vmap: the OR (a max over int32) of the (B_r, S) fused flags across the
+    shards.  Pass 2: new-surfel extraction, the round-robin ownership of
+    new surfels by seed index and the in-place compact-and-append.  masks
+    (optional, per cell (B_r, P) bool): the window gating.  The extra
+    stats (the matcher's n_rescued_px) are shard 0's."""
     n = len(row)
     devs = [b.device for b in row]
-    seeds_l, fused_l = [], []
-    for s in cells(devs):
-        fr = frames[s]
+
+    def first(bank, ins, mask, seg):
+        frame, extra = front(*ins)
         with torch.profiler.record_function("superpixel"):
-            if segmented is None:
-                seeds, assignment = superpixel.run_slic(config, fr.image,
-                                                        fr.depth)
-                seeds, _ = normals.compute_seed_planes(config, seeds,
-                                                       assignment, fr.depth)
+            if seg is None:
+                seeds, assignment = superpixel.run_slic(config, frame.image,
+                                                        frame.depth)
+                seeds, _ = normals.compute_seed_planes(
+                    config, seeds, assignment, frame.depth)
             else:
-                seeds, assignment = segmented[s]
+                seeds, assignment = SuperpixelState(**seg[0]), seg[1]
         with torch.profiler.record_function("fuse"):
             fused = fusion.fuse_surfels(
-                config, row[s], seeds, assignment, fr.depth, fr.pose,
-                fr.frame_index,
-                pose_mask=None if pose_masks is None else pose_masks[s])
-        seeds_l.append(seeds)
-        fused_l.append(fused.to(torch.int32))
+                config, bank, seeds, assignment, frame.depth, frame.pose,
+                frame.frame_index, pose_mask=mask)
+        return (_fields(seeds), fused.to(torch.int32), frame.pose,
+                frame.frame_index, extra)
+
+    passes = [multistream._vmap_banks(first)(
+        row[s], inputs[s], None if masks is None else masks[s],
+        None if segmented is None else segmented[s]) for s in cells(devs)]
 
     # seeds claimed by ANY shard's surfels: OR across the surfel axis
-    fused_all = [f > 0 for f in _all_reduce(fused_l, torch.maximum)]
+    fused_all = _all_reduce([p[1] for p in passes], torch.maximum)
     per_shard = []
     with torch.profiler.record_function("initialize"):
         for s in cells(devs):
-            fr = frames[s]
-            new_fields, new_mask = fusion.extract_new_surfels(
-                config, seeds_l[s], fused_all[s], fr.pose, fr.frame_index)
-            # round-robin ownership of new surfels by seed index
-            seed_idx = torch.arange(new_mask.shape[0], device=new_mask.device)
-            new_mask = new_mask & (seed_idx % n == s)
-            per_shard.append(fusion.compact_and_append_(row[s], new_fields,
-                                                        new_mask))
-    stats = {k: functools.reduce(torch.add, [_to(st[k], row[0].device)
+            def second(bank, seeds, fused, pose, ref, s=s):
+                new_fields, new_mask = fusion.extract_new_surfels(
+                    config, SuperpixelState(**seeds), fused > 0, pose, ref)
+                # round-robin ownership of new surfels by seed index
+                seed_idx = torch.arange(new_mask.shape[0],
+                                        device=new_mask.device)
+                return fusion.compact_and_append_(
+                    bank, new_fields, new_mask & (seed_idx % n == s))
+            seeds, _, pose, ref, _ = passes[s]
+            per_shard.append(multistream._vmap_banks(second)(
+                row[s], seeds, fused_all[s], pose, ref))
+    stats = {k: functools.reduce(torch.add, [_to(st[k], devs[0])
                                              for st in per_shard])
              for k in ("n_live", "n_new", "n_dropped")}
-    stats["n_fused_seeds"] = fused_all[0].sum(dtype=torch.int32)
+    stats["n_fused_seeds"] = (fused_all[0] > 0).flatten(1).sum(
+        dim=1, dtype=torch.int32)
+    stats.update(passes[0][4])
     return stats
+
+
+def _frame_front(image, depth, pose, frame_index):
+    """Pass 1's front of a step fed padded frames: the frame itself."""
+    return FrameInput(image=image, depth=depth, pose=pose,
+                      frame_index=frame_index), {}
+
+
+def _frame_inputs(frames: Sequence[FrameInput]) -> List[tuple]:
+    """`_frame_front`'s inputs on each cell, from a row of `shard_frames`."""
+    return [(f.image, f.depth, f.pose, f.frame_index) for f in frames]
+
+
+def _packed_front(config: SurfelMapConfig):
+    """Pass 1's front of a step fed compact single-buffer frames (u8
+    intensity + f16 depth, `_packed_inputs`): the device-side ingest of
+    the single-device drivers, so sharded and dense runs see the same
+    frames."""
+    from ..pipeline.fuse_step import ingest_frame
+
+    def front(image_u8, depth_f16, pose, frame_index):
+        img, dep = ingest_frame(config, image_u8, depth_f16)
+        return FrameInput(image=img, depth=dep, pose=pose,
+                          frame_index=frame_index), {}
+    return front
 
 
 def sharded_fuse_frame(config: SurfelMapConfig, mesh: Mesh):
@@ -408,9 +496,9 @@ def sharded_fuse_frame(config: SurfelMapConfig, mesh: Mesh):
 
     def step(banks: ShardedBanks, frames):
         with mesh_program(banks.devices()):
-            return banks, _stack_streams([
-                _fuse_stream(config, banks.shards[b], frames[b])
-                for b in range(banks.n_streams)])
+            return banks, _stack_rows(banks, [
+                _fuse_row(config, row, _frame_front, _frame_inputs(frames[r]))
+                for r, row in enumerate(banks.rows)])
     return step
 
 
@@ -422,23 +510,22 @@ def sharded_fuse_frame_windowed(config: SurfelMapConfig, mesh: Mesh):
 
     def step(banks: ShardedBanks, frames, masks: torch.Tensor):
         with mesh_program(banks.devices()):
-            return banks, _stack_streams([
-                _fuse_stream(config, row, frames[b],
-                             pose_masks=_replicate(masks[b], row))
-                for b, row in enumerate(banks.shards)])
+            return banks, _stack_rows(banks, [
+                _fuse_row(config, row, _frame_front, _frame_inputs(frames[r]),
+                          masks=_replicate(masks[lo:hi], row))
+                for r, (row, (lo, hi)) in enumerate(zip(banks.rows,
+                                                        banks.spans()))])
     return step
 
 
-def _packed_frames(config: SurfelMapConfig, row, buf, pose, ref):
-    """One stream's packed frame decoded on each of its shards' devices."""
-    from ..pipeline.fuse_step import ingest_frame, unpack_frame
-    out = []
-    for b in row:
-        img_u8, dep_f16 = unpack_frame(config, _to(buf, b.device))
-        img, dep = ingest_frame(config, img_u8, dep_f16)
-        out.append(FrameInput(image=img, depth=dep, pose=_to(pose, b.device),
-                              frame_index=_to(ref, b.device)))
-    return out
+def _packed_inputs(config: SurfelMapConfig, row: Sequence[SurfelBank],
+                   bufs, poses, refs) -> list:
+    """`_packed_front`'s inputs on each cell of a row: the row's (B_r,
+    3HW) u8 buffers decoded (`multistream.unpack_frames`), poses and
+    frame indices."""
+    return [tuple(_to(t, b.device) for t in (
+        *multistream.unpack_frames(config, bufs), poses, refs))
+        for b in row]
 
 
 def sharded_fuse_frame_windowed_packed(config: SurfelMapConfig, mesh: Mesh):
@@ -450,73 +537,90 @@ def sharded_fuse_frame_windowed_packed(config: SurfelMapConfig, mesh: Mesh):
     Call: (banks, bufs (B, 3HW) u8, poses (B,4,4) f32, refs (B,) i32,
     masks (B, max_keyframes) bool) -> (banks, stats)."""
     del mesh
+    front = _packed_front(config)
 
     def step(banks: ShardedBanks, bufs, poses, refs, masks):
         with mesh_program(banks.devices()):
-            return banks, _stack_streams([
-                _fuse_stream(config, row,
-                             _packed_frames(config, row, bufs[b], poses[b],
-                                            refs[b]),
-                             pose_masks=_replicate(masks[b], row))
-                for b, row in enumerate(banks.shards)])
+            return banks, _stack_rows(banks, [
+                _fuse_row(config, row, front, _packed_inputs(
+                    config, row, bufs[lo:hi], poses[lo:hi], refs[lo:hi]),
+                    masks=_replicate(masks[lo:hi], row))
+                for row, (lo, hi) in zip(banks.rows, banks.spans())])
     return step
 
 
-def sharded_prior(config: SurfelMapConfig, stereo_config, row, poses):
-    """The matcher's map prior on every shard of one stream (None each
-    when the prior is off): each shard renders its own slab, and its
-    z-buffer is min-merged with the other shards' before the upsample (the
-    JAX package's `lax.pmin`; exact, so every shard gets the dense bank's
-    prior)."""
+def merged_zbuffers(config: SurfelMapConfig, stereo_config, row, poses):
+    """Pass 0 of the stereo steps: every cell renders the coarse z-buffers
+    of its slab for the row's streams (one vmapped `coarse_zbuffer` per
+    cell; poses: the row's (B_r, 4, 4) poses on each cell), min-merged
+    across the shards (the JAX package's `lax.pmin`; exact, so every
+    shard gets the dense bank's z-buffer): (B_r, hs, ws) f32 per cell, or
+    None when the prior is off."""
     from ..ops.render import coarse_zbuffer
-    from ..pipeline.fuse_step import _stereo_prior
     if not stereo_config.prior_rescue or stereo_config.hierarchical:
+        return None
+    render = multistream._vmap_banks(lambda bank, pose: coarse_zbuffer(
+        config, bank, pose, stereo_config.prior_stride,
+        stereo_config.prior_min_updates))
+    return _all_reduce([render(row[s], poses[s])
+                        for s in cells([b.device for b in row])],
+                       torch.minimum)
+
+
+def sharded_prior(config: SurfelMapConfig, stereo_config, row, poses):
+    """The matcher's map prior of ONE stream on every shard (`row`: its
+    per-shard banks, `poses`: its pose on each shard's device), None each
+    when the prior is off: the stereo steps' merged z-buffer
+    (`merged_zbuffers`) upsampled on each shard, as their pass 1 does."""
+    from ..ops.render import upsample_prior
+    merged = merged_zbuffers(config, stereo_config,
+                             [_one_stream(b) for b in row],
+                             [p[None] for p in poses])
+    if merged is None:
         return [None] * len(row)
-    devs = [b.device for b in row]
-    coarse = [coarse_zbuffer(config, row[s], poses[s],
-                             stereo_config.prior_stride,
-                             stereo_config.prior_min_updates)
-              for s in cells(devs)]
-
-    def merge(s):
-        def reduce(local):
-            for o, c in enumerate(coarse):
-                if o != s:
-                    local = torch.minimum(local, _to(c, local.device))
-            return local
-        return reduce
-
-    return [_stereo_prior(config, stereo_config, row[s], poses[s],
-                          reduce=merge(s)) for s in cells(devs)]
+    return [upsample_prior(config, m[0], stereo_config.prior_stride)
+            for m in merged]
 
 
-def _stereo_stream(config, stereo_config, filter_depth, row, buf, pose,
-                   ref, bf, mask):
-    """The stereo-resident step of one stream: the matcher runs on every
-    shard's device (B5/B6 once per shard), with the merged map prior
-    (`sharded_prior`, the same depth on every shard), then the sharded
-    fuse."""
+def _stereo_front(config: SurfelMapConfig, stereo_config,
+                  filter_depth: bool):
+    """Pass 1's front of the stereo steps, for one stream: the pair's
+    unpack, the prior's upsample from the merged z-buffer (when given),
+    the matcher, depth and its filter, and the pad."""
+    from ..ops.render import upsample_prior
     from ..pipeline.fuse_step import compute_depth_stereo, unpack_stereo
     ph, pw = config.padded_height, config.padded_width
     pad = (0, pw - config.width, 0, ph - config.height)
-    poses = _replicate(pose, row)
-    priors = sharded_prior(config, stereo_config, row, poses)
-    frames, rescued = [], None
-    for s in cells([b.device for b in row]):
-        b = row[s]
-        left, right = unpack_stereo(config, _to(buf, b.device))
+
+    def front(buf, pose, ref, bf, coarse=None):
+        left, right = unpack_stereo(config, buf)
+        prior = None if coarse is None else upsample_prior(
+            config, coarse, stereo_config.prior_stride)
         depth, n_rescued = compute_depth_stereo(
-            config, stereo_config, left, right, _to(bf, b.device),
-            filter_depth, prior_depth=priors[s])
-        rescued = n_rescued if rescued is None else rescued
-        frames.append(FrameInput(
-            image=torch.nn.functional.pad(left, pad),
-            depth=torch.nn.functional.pad(depth, pad), pose=poses[s],
-            frame_index=_to(ref, b.device)))
-    stats = _fuse_stream(config, row, frames, pose_masks=(
-        None if mask is None else _replicate(mask, row)))
-    stats["n_rescued_px"] = _to(rescued, row[0].device)
-    return stats
+            config, stereo_config, left, right, bf, filter_depth,
+            prior_depth=prior)
+        return FrameInput(image=torch.nn.functional.pad(left, pad),
+                          depth=torch.nn.functional.pad(depth, pad),
+                          pose=pose, frame_index=ref), \
+            {"n_rescued_px": n_rescued}
+    return front
+
+
+def _stereo_row(config, stereo_config, filter_depth, row, bufs, poses,
+                refs, bfs, masks) -> dict:
+    """The stereo-resident step of one data row's streams: pass 0 (the
+    merged prior z-buffers), then `_fuse_row` with the matcher in its
+    pass 1, under the same vmap as the fuse: on CUDA B5 and B6 launch once
+    per cell for the row's streams (B4 twice on the materialized
+    branch)."""
+    zbuf = merged_zbuffers(config, stereo_config, row,
+                           _replicate(poses, row))
+    inputs = [tuple(_to(t, b.device) for t in (bufs, poses, refs, bfs))
+              + (() if zbuf is None else (zbuf[s],))
+              for s, b in enumerate(row)]
+    return _fuse_row(config, row, _stereo_front(config, stereo_config,
+                                                filter_depth), inputs,
+                     masks=None if masks is None else _replicate(masks, row))
 
 
 def sharded_fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
@@ -533,10 +637,11 @@ def sharded_fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
 
     def step(banks: ShardedBanks, bufs, poses, refs, bfs, masks):
         with mesh_program(banks.devices()):
-            return banks, _stack_streams([
-                _stereo_stream(config, stereo_config, filter_depth, row,
-                               bufs[b], poses[b], refs[b], bfs[b], masks[b])
-                for b, row in enumerate(banks.shards)])
+            return banks, _stack_rows(banks, [
+                _stereo_row(config, stereo_config, filter_depth, row,
+                            *(t[lo:hi] for t in (bufs, poses, refs, bfs,
+                                                 masks)))
+                for row, (lo, hi) in zip(banks.rows, banks.spans())])
     return step
 
 
@@ -550,31 +655,38 @@ def sharded_fuse_frame_stereo(config: SurfelMapConfig, stereo_config,
 
     def step(banks: ShardedBanks, bufs, poses, refs, bfs):
         with mesh_program(banks.devices()):
-            return banks, _stack_streams([
-                _stereo_stream(config, stereo_config, filter_depth, row,
-                               bufs[b], poses[b], refs[b], bfs[b], None)
-                for b, row in enumerate(banks.shards)])
+            return banks, _stack_rows(banks, [
+                _stereo_row(config, stereo_config, filter_depth, row,
+                            *(t[lo:hi] for t in (bufs, poses, refs, bfs)),
+                            None)
+                for row, (lo, hi) in zip(banks.rows, banks.spans())])
     return step
 
 
 # ----------------------------------------------------------------------
-# bank lifecycle: every (stream, shard) works on its own rows
+# bank lifecycle: one vmapped call per cell over its row's streams, each
+# (stream, shard) on its own rows
 # ----------------------------------------------------------------------
+def _row_cells(banks: ShardedBanks):
+    """(row's first stream, end, shard, the cell's batched bank) of every
+    cell, each row's cells in one pass (`cells`)."""
+    for row, (lo, hi) in zip(banks.rows, banks.spans()):
+        for s in cells([b.device for b in row]):
+            yield lo, hi, s, row[s]
+
+
 def sharded_warp_by_pose(config: SurfelMapConfig, mesh: Mesh):
     """Whole-bank per-pose loop warp over the mesh (`warp_bank_by_pose` on
-    every shard, in place).  Call: (banks, warps (B,P,4,4), moved (B,P),
-    masks (B,P), firsts (B,)) -> banks."""
+    every cell, vmapped over its streams, in place).  Call: (banks, warps
+    (B,P,4,4), moved (B,P), masks (B,P), firsts (B,)) -> banks."""
     del config, mesh
 
     def warp(banks: ShardedBanks, warps, moved, masks, firsts):
         with mesh_program(banks.devices()):
-            for b, row in enumerate(banks.shards):
-                for s in cells([bank.device for bank in row]):
-                    d = row[s].device
-                    warp_ops.warp_bank_by_pose(row[s], _to(warps[b], d),
-                                               _to(moved[b], d),
-                                               _to(masks[b], d),
-                                               _to(firsts[b], d))
+            for lo, hi, _, bank in _row_cells(banks):
+                multistream.batched_warp(bank, *(
+                    _to(t[lo:hi], bank.device)
+                    for t in (warps, moved, masks, firsts)))
         return banks
     return warp
 
@@ -586,9 +698,8 @@ def sharded_compact(config: SurfelMapConfig, mesh: Mesh):
 
     def compact(banks: ShardedBanks):
         with mesh_program(banks.devices()):
-            for row in banks.shards:
-                for s in cells([bank.device for bank in row]):
-                    fusion.compact_bank(row[s])
+            for _, _, _, bank in _row_cells(banks):
+                multistream.batched_compact(bank)
         return banks
     return compact
 
@@ -600,29 +711,26 @@ def sharded_extract_by_pose(config: SurfelMapConfig, mesh: Mesh,
     (B, n_shards * buffer_size) buffer.
 
     Call: (banks, pose_ids (MAX_REMOVE_POSES,)) -> (banks, buffers dict,
-    counts (B, n_shards)), the buffers and counts on the device of stream
-    0's first shard.  The union of the shards' buffers is the
-    single-device extraction."""
+    counts (B, n_shards)), the buffers and counts on the home cell.  The
+    union of the shards' buffers is the single-device extraction."""
     from ..ops.migration import extract_by_pose
     del config, mesh
 
     def extract(banks: ShardedBanks, pose_ids: torch.Tensor):
-        dev = banks.shards[0][0].device
-        bufs = {k: [] for k in FIELDS}
-        ns = []
+        home = banks.rows[0][0].device
         with mesh_program(banks.devices()):
-            for row in banks.shards:
-                ns_row = []
-                for s in cells([bank.device for bank in row]):
-                    buf, n = extract_by_pose(
-                        row[s], _to(pose_ids, row[s].device), buffer_size)
-                    for k in FIELDS:
-                        bufs[k].append(_to(buf[k], dev))
-                    ns_row.append(_to(n, dev))
-                ns.append(torch.stack(ns_row))
-            b = banks.n_streams
-            return banks, {k: torch.cat(v).view((b, -1) + v[0].shape[1:])
-                           for k, v in bufs.items()}, torch.stack(ns)
+            parts = [multistream._vmap_banks(
+                lambda b, ids=_to(pose_ids, bank.device): extract_by_pose(
+                    b, ids, buffer_size))(bank)
+                for _, _, _, bank in _row_cells(banks)]
+            n = banks.n_shards
+            # cell (r, s) is parts[r * n + s]: (buffers (B_r, size, ...),
+            # counts (B_r,)); stack the shards, then the rows
+            rows = [parts[i:i + n] for i in range(0, len(parts), n)]
+            return banks, {k: torch.cat([torch.stack(
+                [_to(p[0][k], home) for p in row], 1).flatten(1, 2)
+                for row in rows]) for k in FIELDS}, torch.cat([torch.stack(
+                    [_to(p[1], home) for p in row], 1) for row in rows])
     return extract
 
 
@@ -634,15 +742,18 @@ def sharded_append(config: SurfelMapConfig, mesh: Mesh, per_buf: int):
     n_shards)) -> banks."""
     del config, mesh
 
+    def one(bank, part, n):
+        mask = torch.arange(per_buf, device=n.device) < n
+        fusion.append_new(bank, part, mask)
+        return bank.count          # vmap needs an output; unused
+
     def append(banks: ShardedBanks, fields: dict, ns: torch.Tensor):
         with mesh_program(banks.devices()):
-            for b, row in enumerate(banks.shards):
-                for s in cells([bank.device for bank in row]):
-                    d = row[s].device
-                    part = {k: _to(v[b, s * per_buf:(s + 1) * per_buf], d)
-                            for k, v in fields.items()}
-                    mask = torch.arange(per_buf, device=d) < _to(ns[b, s], d)
-                    fusion.append_new(row[s], part, mask)
+            for lo, hi, s, bank in _row_cells(banks):
+                part = {k: _to(v[lo:hi, s * per_buf:(s + 1) * per_buf],
+                               bank.device) for k, v in fields.items()}
+                multistream._vmap_banks(one)(bank, part,
+                                             _to(ns[lo:hi, s], bank.device))
         return banks
     return append
 
@@ -653,12 +764,15 @@ def sharded_warp_active(config: SurfelMapConfig, mesh: Mesh):
     (B,4,4)) -> banks."""
     del config, mesh
 
+    def one(bank, w):
+        warp_ops.warp_active(bank, w)
+        return bank.count          # vmap needs an output; unused
+
     def warp(banks: ShardedBanks, warps: torch.Tensor):
         with mesh_program(banks.devices()):
-            for b, row in enumerate(banks.shards):
-                for s in cells([bank.device for bank in row]):
-                    warp_ops.warp_active(row[s],
-                                         _to(warps[b], row[s].device))
+            for lo, hi, _, bank in _row_cells(banks):
+                multistream._vmap_banks(one)(bank, _to(warps[lo:hi],
+                                                       bank.device))
         return banks
     return warp
 

@@ -207,19 +207,17 @@ def compute_depth_stereo(config: SurfelMapConfig, stereo_config,
 
 
 def _stereo_prior(config: SurfelMapConfig, stereo_config, bank: SurfelBank,
-                  pose: torch.Tensor, reduce=None):
+                  pose: torch.Tensor):
     """Map-rendered depth prior for the matcher's rescue gate, or None (off
     unless stereo_config.prior_rescue, and in hierarchical mode, whose
     matcher ignores it).  Rendered from the bank before this frame's
-    update; `reduce`: the sharded banks' z-buffer merge
-    (`ops/render.render_prior_depth`)."""
+    update (the sharded steps: `parallel.sharding.merged_zbuffers`)."""
     if not stereo_config.prior_rescue or stereo_config.hierarchical:
         return None
     from ..ops.render import render_prior_depth
     return render_prior_depth(config, bank, pose,
                               stride=stereo_config.prior_stride,
-                              min_updates=stereo_config.prior_min_updates,
-                              reduce=reduce)
+                              min_updates=stereo_config.prior_min_updates)
 
 
 def fuse_frame_stereo_windowed_packed(config: SurfelMapConfig,
@@ -340,8 +338,8 @@ CAPTURES = {"steps": 0, "programs": 0}
 
 def devices_of(target) -> list:
     """The devices of a graph's target, the home first: one bank's, or
-    the distinct devices of a `parallel.sharding.ShardedBanks` in (stream,
-    shard) order, whose home is the home cell (stream 0's first shard),
+    the distinct devices of a `parallel.sharding.ShardedBanks` in (row,
+    shard) order, whose home is the home cell (row 0's first shard),
     where the graph keeps its static inputs and is replayed."""
     if isinstance(target, SurfelBank):
         return [target.device]
@@ -357,8 +355,8 @@ def _scratch(target):
     """A clone of the target (a bank or a mesh's banks) to warm up on."""
     if isinstance(target, SurfelBank):
         return _clone(target)
-    return dataclasses.replace(target, shards=[[_clone(b) for b in row]
-                                               for row in target.shards])
+    return dataclasses.replace(target, rows=[[_clone(b) for b in row]
+                                             for row in target.rows])
 
 
 def capture(bank, body: Callable[[object], object], pool=None,

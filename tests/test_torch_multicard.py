@@ -6,7 +6,7 @@ streams, warm-up clones and the home cell) for meshes built from
 `torch.device("cuda", k)` objects, nothing allocated: one card, four, 8
 cells on 4 cards, and 2 data rows.  Then the passes over the shards that
 issue each cell's work on its own stream on a card (`sharding.cells`:
-`_fuse_stream`, `_stereo_stream`) and the ring of the sharded SGM
+`_fuse_row`, `_stereo_row`) and the ring of the sharded SGM
 (`sgm_sharding._ring_axis_scan`, on the cards' lanes), on an 8-cell CPU
 mesh laid out as 8 cells on 4 devices, against the JAX
 package's sharded programs on its 8 virtual devices at the 120 x 56
@@ -90,7 +90,7 @@ def test_cpu_mesh_is_eager():
 
 
 def test_fuse_stream_on_8_cells_matches_jax():
-    """`sharded_fuse_frame` (one `_fuse_stream` per frame: the
+    """`sharded_fuse_frame` (one `_fuse_row` per frame: the
     replicated stage and the fuse pass, the max of the fused flags, the
     extract/append pass) over two frames."""
     scene = synthetic.default_scene()
@@ -120,8 +120,9 @@ def test_fuse_stream_on_8_cells_matches_jax():
 
 
 def test_stereo_stream_on_8_cells_matches_jax():
-    """`sharded_fuse_frame_stereo` (`_stereo_stream`: the matcher's pass
-    over the shards, then `_fuse_stream`) over one pair of the textured
+    """`sharded_fuse_frame_stereo` (`_stereo_row`: the z-buffers' pass
+    over the shards, then `_fuse_row` with the matcher in its first pass)
+    over one pair of the textured
     scene."""
     scene = synthetic.Scene(ground_y=1.5, wall_z=18.0,
                             boxes=synthetic.default_scene().boxes,
