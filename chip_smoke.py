@@ -2480,7 +2480,8 @@ def phase_profile(device) -> None:
         f"{1e3 * wall / n:.2f} ms/frame, device busy {busy_us / n / 1e3:.2f} "
         f"ms/frame, idle share {1 - busy_us / 1e6 / wall:.3f}, "
         f"{len(device) / n:.0f} device operations/frame")
-    for key in ("stereo", "superpixel", "fuse", "initialize"):
+    for key in ("dsm.stereo_aggregate", "dsm.stereo_wta", "dsm.depth_filter",
+                "dsm.superpixel", "dsm.planefit", "dsm.fuse", "dsm.append"):
         # host-side scope: its device time is that of the work it launched
         scope = [e for e in events if e.name == key
                  and e.device_type == DeviceType.CPU]

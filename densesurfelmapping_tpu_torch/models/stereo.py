@@ -29,6 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import timing
+
 _INF = float("inf")
 
 
@@ -412,25 +414,30 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
     volume never materializes); otherwise the volume is built and
     `_sgm_aggregate` scans it (B4 on a CUDA tensor with sgm_pallas)."""
     n_d = cfg.max_disparity - cfg.min_disparity
-    if (cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
-            and 0 < n_d < 128):
-        from ..ops.cuda.sgm import census_aggregate
-        cl = _census(left, cfg.census_radius)
-        cr = _census(right, cfg.census_radius)
-        v_rolls = (0,) if cfg.sgm_paths == 4 else (0, 1, -1)
-        agg = census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
-                               cfg.min_disparity, n_d,
-                               carry_bf16=cfg.sgm_carry_bf16)
-    else:
-        vol = (_cost_volume_scan if cfg.sgm_pallas
-               else _cost_volume)(left, right, cfg)
-        agg = _sgm_aggregate(vol, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_paths,
-                             cfg.sgm_pallas,
-                             carry_bf16=(cfg.sgm_carry_bf16
-                                         and cfg.cost == "census"),
-                             min_d=cfg.min_disparity)
-    return _wta_and_gates(left, agg, cfg, diagnostics,
-                          prior_disp=prior_disp, with_rescued=with_rescued)
+    with timing.phase("stereo_aggregate", left.device):
+        if (cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
+                and 0 < n_d < 128):
+            from ..ops.cuda.sgm import census_aggregate
+            cl = _census(left, cfg.census_radius)
+            cr = _census(right, cfg.census_radius)
+            v_rolls = (0,) if cfg.sgm_paths == 4 else (0, 1, -1)
+            agg = census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
+                                   cfg.min_disparity, n_d,
+                                   carry_bf16=cfg.sgm_carry_bf16)
+        else:
+            vol = (_cost_volume_scan if cfg.sgm_pallas
+                   else _cost_volume)(left, right, cfg)
+            agg = _sgm_aggregate(vol, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_paths,
+                                 cfg.sgm_pallas,
+                                 carry_bf16=(cfg.sgm_carry_bf16
+                                             and cfg.cost == "census"),
+                                 min_d=cfg.min_disparity)
+    # on the card this phase lasts to the next stamp: the post-filters of
+    # `disparity` count in it
+    with timing.phase("stereo_wta", left.device):
+        return _wta_and_gates(left, agg, cfg, diagnostics,
+                              prior_disp=prior_disp,
+                              with_rescued=with_rescued)
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -830,7 +837,8 @@ def disparity(left: torch.Tensor, right: torch.Tensor,
         else:
             out = _disparity_sgm(left, right, cfg, prior_disp=prior_disp)
     else:
-        out, n_rescued = _disparity_box(left, right, cfg, prior_disp)
+        with timing.phase("stereo_aggregate", left.device):
+            out, n_rescued = _disparity_box(left, right, cfg, prior_disp)
     out = _post_filters(out, cfg)
     return (out, n_rescued) if with_rescued else out
 

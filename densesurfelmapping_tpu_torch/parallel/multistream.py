@@ -269,11 +269,12 @@ def graphed_warp(config: SurfelMapConfig, banks: SurfelBank,
     return fuse_step.BankGraph(
         batched_warp, banks, (((b, p, 4, 4), torch.float32),
                               ((b, p), torch.bool), ((b, p), torch.bool),
-                              ((b,), torch.int32)), pool)
+                              ((b,), torch.int32)), pool, name="pose_warp")
 
 
 def graphed_compact(banks: SurfelBank, pool=None) -> fuse_step.BankGraph:
     """`batched_compact` on `banks` as a `fuse_step.BankGraph` (the JAX
     fleet's jitted `_batched_compact`, densesurfelmapping_tpu/pipeline/
     multi_session.py:106-108)."""
-    return fuse_step.BankGraph(batched_compact, banks, (), pool)
+    return fuse_step.BankGraph(batched_compact, banks, (), pool,
+                               name="compact")

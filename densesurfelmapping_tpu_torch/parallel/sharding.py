@@ -53,6 +53,7 @@ from ..config import SurfelMapConfig
 from ..core.state import FIELDS, FrameInput, SuperpixelState, SurfelBank
 from ..ops import fusion, normals, superpixel
 from ..ops import warp as warp_ops
+from ..utils import timing
 from . import multistream
 
 
@@ -270,7 +271,8 @@ def mesh_program(devices):
     entry and joined into main on exit, and current on that card while
     the program runs, so PyTorch issues each card's work and the peer
     copies between cards (two-way event barriers between the two cards'
-    current streams) on the lanes.  Outside a capture the lanes also
+    current streams) on the lanes; its phases write no device stamps
+    (`timing.unstamped`).  Outside a capture the lanes also
     fork from and join into each card's stream current before the call,
     so work around the call stays ordered; under a capture (main
     capturing) they fork and join main alone, and a replay orders the
@@ -296,6 +298,7 @@ def mesh_program(devices):
             for d in devs[1:]:
                 stack.enter_context(torch.cuda.stream(lanes[d]))
             stack.enter_context(torch.cuda.device(home))
+            stack.enter_context(timing.unstamped())
             yield
     finally:
         _PROGRAM.lanes = None
@@ -418,7 +421,8 @@ def _fuse_row(config: SurfelMapConfig, row: List[SurfelBank], front,
 
     def first(bank, ins, mask, seg):
         frame, extra = front(*ins)
-        with torch.profiler.record_function("superpixel"):
+        dev = frame.depth.device
+        with timing.phase("superpixel", dev):
             if seg is None:
                 seeds, assignment = superpixel.run_slic(config, frame.image,
                                                         frame.depth)
@@ -426,7 +430,7 @@ def _fuse_row(config: SurfelMapConfig, row: List[SurfelBank], front,
                     config, seeds, assignment, frame.depth)
             else:
                 seeds, assignment = SuperpixelState(**seg[0]), seg[1]
-        with torch.profiler.record_function("fuse"):
+        with timing.phase("fuse", dev):
             fused = fusion.fuse_surfels(
                 config, bank, seeds, assignment, frame.depth, frame.pose,
                 frame.frame_index, pose_mask=mask)
@@ -440,7 +444,7 @@ def _fuse_row(config: SurfelMapConfig, row: List[SurfelBank], front,
     # seeds claimed by ANY shard's surfels: OR across the surfel axis
     fused_all = _all_reduce([p[1] for p in passes], torch.maximum)
     per_shard = []
-    with torch.profiler.record_function("initialize"):
+    with timing.phase("append", devs[0]):
         for s in cells(devs):
             def second(bank, seeds, fused, pose, ref, s=s):
                 new_fields, new_mask = fusion.extract_new_surfels(

@@ -166,14 +166,19 @@ class DeviceResidentMapping(SurfelMapping):
         self._fuse_packed(buf)
 
     def _fuse_packed(self, buf: np.ndarray) -> None:
-        with self.timer.stage("dispatch"):
-            stats = self._fuse_graph(self._staged(buf))
-        self._fused(stats)
+        self._fused(self._launch(self._fuse_graph, buf))
 
     def _fuse_stereo_packed(self, buf: np.ndarray) -> None:
-        with self.timer.stage("dispatch"):
-            stats = self._stereo_graph(self._staged(buf))
-        self._fused(stats)
+        self._fused(self._launch(self._stereo_graph, buf))
+
+    def _launch(self, step, buf: np.ndarray):
+        """The payload's pinned staging copy (stage `stage`), then its
+        upload and the step's replay (stage `launch`, which holds any wait
+        on a full launch queue)."""
+        with self.timer.stage("stage"):
+            staged = self._staged(buf)
+        with self.timer.stage("launch"):
+            return step(staged)
 
     def _fused(self, stats) -> None:
         # on the card: the graph's static stats, which the next replay

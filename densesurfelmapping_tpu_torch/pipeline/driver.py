@@ -234,6 +234,9 @@ class SurfelMapping:
         of ALL keyframes so far (same raw frame as pose). loop_edges:
         keyframe index pairs. reference_index: this frame's reference
         keyframe (defaults to the newest; a new keyframe references itself).
+        A pose whose reference_index names no keyframe fed (nor the new
+        one) is dropped and counted in `dropped["unknown_reference"]`;
+        the JAX package's driver raises IndexError there.
         """
         pose = np.array(pose, np.float64)
         # a NaN/Inf or non-rigid pose would poison the whole pose graph:
@@ -243,6 +246,13 @@ class SurfelMapping:
             return
         if abs(np.linalg.det(pose[:3, :3]) - 1.0) > 0.1:
             self.dropped["invalid_pose"] += 1
+            return
+        # a reference keyframe never fed drops the pose too, where the JAX
+        # driver raises IndexError: one malformed message from a live
+        # front-end must not end the session
+        if reference_index is not None and not self.graph.knows(
+                reference_index, is_keyframe or len(self.graph) == 0):
+            self.dropped["unknown_reference"] += 1
             return
         if self._kitti_alignment:
             if self._alignment is None:
@@ -254,7 +264,8 @@ class SurfelMapping:
 
         loop_changed = False
         if loop_path is not None and len(self.graph) > 0:
-            loop_changed = self.graph.update_loop_path(list(loop_path))
+            with self.timer.stage("loop_path"):
+                loop_changed = self.graph.update_loop_path(list(loop_path))
         if loop_changed:
             with self.timer.stage("warp"):
                 self._warp_surfels()
@@ -374,7 +385,8 @@ class SurfelMapping:
         return self.bank.capacity
 
     def _do_compact(self) -> None:
-        self._compact_graph()
+        with self.timer.stage("compact"):
+            self._compact_graph()
         self.compactions += 1
 
     def _extract_chunk(self, ids: np.ndarray):

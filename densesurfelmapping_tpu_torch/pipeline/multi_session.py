@@ -210,6 +210,11 @@ class MultiSessionMapping:
                 or abs(np.linalg.det(pose[:3, :3]) - 1.0) > 0.1:
             s.dropped["invalid_pose"] += 1
             return
+        # and a reference keyframe never fed, as the solo driver does
+        if reference_index is not None and not s.graph.knows(
+                reference_index, is_keyframe or len(s.graph) == 0):
+            s.dropped["unknown_reference"] += 1
+            return
         if loop_path is not None and len(s.graph) > 0:
             if s.graph.update_loop_path(list(loop_path)):
                 warps, moved = s.graph.pose_warps()

@@ -39,6 +39,12 @@ class PoseGraph:
     def __len__(self):
         return len(self.keyframes)
 
+    def knows(self, index: int, adding: bool) -> bool:
+        """Whether `index` names a keyframe held, or the one a pose that
+        `adding` a keyframe is about to add (a new keyframe may name
+        itself)."""
+        return 0 <= int(index) < len(self) + int(adding)
+
     def add_keyframe(self, pose: np.ndarray, stamp: float,
                      reference_index: Optional[int] = None) -> int:
         """Append a keyframe; bidirectionally link it to its reference

@@ -14,6 +14,8 @@ from densesurfelmapping_tpu_torch.core.state import bank_to_numpy
 from densesurfelmapping_tpu_torch.pipeline.device_driver import (
     DeviceResidentMapping)
 from densesurfelmapping_tpu_torch.pipeline.driver import SurfelMapping
+from densesurfelmapping_tpu_torch.pipeline.multi_session import (
+    MultiSessionMapping)
 
 from test_driver import tiny_config, render_plane, feed_frame
 from test_device_driver import run_scenario, sorted_rows
@@ -147,3 +149,55 @@ def test_keyframe_capacity_grows():
     assert len(m._window_np) == m.config.max_keyframes
     np.testing.assert_allclose(bank_to_numpy(m.bank)["position"],
                                before["position"] + shift[:3, 3], atol=1e-5)
+
+
+class OneStreamFleet:
+    """Stream 0 of a one-stream MultiSessionMapping behind the solo
+    drivers' feed calls (a round stepped after each, as the solo drivers
+    fuse a frame once its pose, image and depth are in)."""
+
+    def __init__(self, cfg, device):
+        self.fleet = MultiSessionMapping(cfg, n_streams=1, device=device)
+
+    def __getattr__(self, name):      # graph, dropped, pose_buffer, ...
+        return getattr(self.fleet.sessions[0], name)
+
+    def _fed(self, feed, *args, **kw):
+        feed(0, *args, **kw)
+        self.fleet.step(flush=True)
+
+    def feed_pose(self, *args, **kw):
+        self._fed(self.fleet.feed_pose, *args, **kw)
+
+    def feed_image(self, *args):
+        self._fed(self.fleet.feed_image, *args)
+
+    def feed_depth(self, *args):
+        self._fed(self.fleet.feed_depth, *args)
+
+
+def test_unknown_reference_drops_the_pose():
+    """A reference_index naming a keyframe never fed drops the pose and
+    counts it (`dropped["unknown_reference"]`), in the solo drivers and in
+    each session of the fleet, where the JAX driver raises IndexError; a
+    new keyframe may still name itself, and the next pose is fused as if
+    the dropped one never came."""
+    ref = tiny_config(**CFG)
+    jax_drv = JaxDeviceResidentMapping(ref)
+    jax_drv.feed_pose(0.0, np.eye(4), is_keyframe=True)
+    with pytest.raises(IndexError):
+        jax_drv.feed_pose(1.0, np.eye(4), reference_index=3)
+    cfg = tcfg.SurfelMapConfig.from_json(ref.to_json())
+    img, dep = render_plane(cfg, np.eye(4))
+    for cls in (SurfelMapping, DeviceResidentMapping, OneStreamFleet):
+        m = cls(cfg, device="cpu")
+        feed_frame(m, 0.0, np.eye(4), img, dep, is_keyframe=True)
+        for ref_index, kf in ((3, False), (-1, False), (2, True)):
+            m.feed_pose(1.0, np.eye(4), reference_index=ref_index,
+                        is_keyframe=kf)
+        assert m.dropped["unknown_reference"] == 3
+        assert len(m.graph) == 1 and not m.pose_buffer
+        m.feed_pose(1.0, np.eye(4), is_keyframe=True, reference_index=1)
+        m.feed_image(1.0, img)
+        m.feed_depth(1.0, dep)
+        assert len(m.graph) == 2 and m.frames_fused == 2
