@@ -6,16 +6,20 @@ the same names, on tensors of one device.  The reference pipeline reads
 precomputed PSMNet disparity (`kitti_publisher/scripts/publisher.py:36-41`,
 depth = bf / disparity); this module computes that disparity from the raw
 rectified pair instead: a 5x5 census cost aggregated along 4 or 8 scanline
-paths (the twins of the fused census kernels B5 and B6, `sgm.py` beside
-it), a streaming WTA with the parabola sub-pixel refine, left-right
+paths, a streaming WTA with the parabola sub-pixel refine, left-right
 consistency, texture, cost and uniqueness gates, and a masked 3x3 median
 gate + hole fill (`_median_postfilter`).
 
-A frozen copy of that route of the port's `models/stereo.py`.  Its other
-routes (the box matcher, the materialized cost volume and B4, bf16
-carries, the reduction WTA, the hierarchical solve, the occlusion fill and
-the map-prior rescue) no configuration here runs: `check_route` refuses
-them, and a configuration that needs one brings it.
+A frozen copy of the census SGM route of the port's `models/stereo.py`,
+with f32 carries, at 1 <= D' <= 1024.  The port aggregates it on the fused
+census kernels B6 + B5 (`sgm_fused_census`, 0 < D' < 128) or on a
+materialized volume scanned by B4 (otherwise: its narrow route for
+D' <= 128, its wide one above); both scan the same census volume with the
+same grouping, and one twin, `sgm.census_aggregate`, serves both.
+
+The matcher's other routes (SAD cost, the box matcher, bf16 carries, the
+reduction WTA, the hierarchical solve, the occlusion fill and the map-prior
+rescue) no configuration here runs: `check_route` refuses them.
 """
 
 from __future__ import annotations
@@ -296,15 +300,15 @@ def _axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
 
 
 def check_route(cfg: StereoConfig) -> None:
-    """Refuse a setting off the route this copy holds: census SGM on the
-    fused census kernels (B5, B6) with the streaming WTA and f32 carries."""
+    """Refuse a setting off the route this copy holds: census SGM with the
+    streaming WTA and f32 carries at 1 <= D' <= 1024, on the fused census
+    kernels (B5, B6) or on a materialized volume scanned by B4."""
     n_d = cfg.max_disparity - cfg.min_disparity
     off = {name: bad for name, bad in (
         ("aggregation", cfg.aggregation != "sgm"),
         ("cost", cfg.cost != "census"),
         ("sgm_pallas", not cfg.sgm_pallas),
-        ("sgm_fused_census", not cfg.sgm_fused_census),
-        ("max_disparity", not 0 < n_d < 128),
+        ("max_disparity", not 1 <= n_d <= 1024),
         ("sgm_paths", cfg.sgm_paths not in (4, 8)),
         ("sgm_carry_bf16", cfg.sgm_carry_bf16),
         ("wta_streaming", not cfg.wta_streaming),
@@ -312,15 +316,15 @@ def check_route(cfg: StereoConfig) -> None:
         ("occlusion_fill", cfg.occlusion_fill and cfg.occlusion_max_gap > 0),
         ("prior_rescue", cfg.prior_rescue)) if bad}
     if off:
-        raise ValueError(f"the reference holds the fused census SGM route "
-                         f"only; off it: {sorted(off)}")
+        raise ValueError(f"the reference holds the census SGM route with "
+                         f"f32 carries only; off it: {sorted(off)}")
 
 
 def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
                    cfg: StereoConfig) -> torch.Tensor:
-    """Semi-global-matching disparity: the census aggregate of B6 + B5's
-    twins (`sgm.census_aggregate`), then the WTA and gates of
-    `_wta_and_gates`."""
+    """Semi-global-matching disparity: the census aggregate
+    (`sgm.census_aggregate`, the twin of B6 + B5 and of B4), then the WTA
+    and gates of `_wta_and_gates`."""
     from .sgm import census_aggregate
     n_d = cfg.max_disparity - cfg.min_disparity
     cl = _census(left, cfg.census_radius)

@@ -20,7 +20,9 @@ SMALL_MIX = dict(route_m=((0, 0), (0, 12), (12, 12), (12, 0), (0, 0),
                  samples=2)
 
 
-def small_cell(name: str, **mix) -> harness.Cell:
+def small_cell(name: str, stereo=None, **mix) -> harness.Cell:
+    """The cell `name` cut to the small size; `stereo` overrides fields of
+    its matcher's settings."""
     cell = harness.load_cell(name)
     m = dict(cell.config["mapper"], camera=dict(SMALL_CAMERA),
              surfel_capacity=1 << 14, compact_interval=16,
@@ -28,6 +30,7 @@ def small_cell(name: str, **mix) -> harness.Cell:
     cell.config = dict(cell.config, mapper=m)
     if cell.config.get("stereo"):
         cell.config["stereo"] = dict(cell.config["stereo"], max_disparity=32)
+        cell.config["stereo"].update(stereo or {})
     kw = dict(SMALL_MIX)
     kw.update(mix)
     cell.mix = dataclasses.replace(cell.mix, **kw)
@@ -36,7 +39,7 @@ def small_cell(name: str, **mix) -> harness.Cell:
 
 def run_small(name: str, seconds: float = 1.5, seed: int = 2 ** 31 + 17,
               limits=None, **kw):
-    cell = small_cell(name, **kw.pop("mix", {}))
+    cell = small_cell(name, kw.pop("stereo", None), **kw.pop("mix", {}))
     if limits is not None:
         cell.limits = limits
     return harness.run_cell(cell, seed, seconds, kw.pop("traced", False),
