@@ -416,9 +416,9 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
     volume never materializes); otherwise the volume is built and
     `_sgm_aggregate` scans it (B4 on a CUDA tensor with sgm_pallas)."""
     n_d = cfg.max_disparity - cfg.min_disparity
-    with timing.phase("stereo_aggregate", left.device):
-        if (cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
-                and 0 < n_d < 128):
+    if (cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
+            and 0 < n_d < 128):
+        with timing.phase("stereo_aggregate", left.device):
             from ..ops.cuda.sgm import census_aggregate
             cl = _census(left, cfg.census_radius)
             cr = _census(right, cfg.census_radius)
@@ -426,9 +426,13 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
             agg = census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
                                    cfg.min_disparity, n_d,
                                    carry_bf16=cfg.sgm_carry_bf16)
-        else:
+    else:
+        # two phases: the volume's build, then its two permuted copies and
+        # both families' scans (B4) with their sum
+        with timing.phase("stereo_volume", left.device):
             vol = (_cost_volume_scan if cfg.sgm_pallas
                    else _cost_volume)(left, right, cfg)
+        with timing.phase("stereo_scan", left.device):
             agg = _sgm_aggregate(vol, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_paths,
                                  cfg.sgm_pallas,
                                  carry_bf16=(cfg.sgm_carry_bf16

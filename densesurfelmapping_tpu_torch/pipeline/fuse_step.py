@@ -190,7 +190,8 @@ def compute_depth_stereo(config: SurfelMapConfig, stereo_config,
     if prior_depth is not None:
         prior_disp = torch.where(prior_depth > 0,
                                  bf / prior_depth.clamp_min(1e-6), 0.0)
-    # the matcher's phases: stereo_aggregate, stereo_wta
+    # the matcher's phases: stereo_aggregate (on the materialized route
+    # stereo_volume, stereo_scan), stereo_wta
     disp, n_rescued = stereo_model.disparity(
         left_f32, right_f32, stereo_config, prior_disp=prior_disp,
         with_rescued=True)

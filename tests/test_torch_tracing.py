@@ -118,6 +118,34 @@ def test_phase_is_a_no_op_on_the_cpu(frames, monkeypatch):
     assert not any(n.startswith("dsm.") for n in names(prof))
 
 
+@pytest.mark.parametrize("over,want", [
+    (dict(max_disparity=24), ["stereo_aggregate", "stereo_wta"]),
+    (dict(max_disparity=24, sgm_fused_census=False),
+     ["stereo_volume", "stereo_scan", "stereo_wta"]),
+    (dict(max_disparity=140), ["stereo_volume", "stereo_scan", "stereo_wta"])],
+    ids=["fused", "materialized_narrow", "materialized_wide"])
+def test_stereo_phases_by_route(monkeypatch, over, want):
+    """The matcher's phases in order: the fused census route keeps its one
+    `stereo_aggregate` phase; the materialized route splits it into the
+    volume's build and B4's scans."""
+    from densesurfelmapping_tpu_torch.models import stereo
+    opened = []
+
+    @contextlib.contextmanager
+    def record(name, device):
+        opened.append(name)
+        yield
+
+    monkeypatch.setattr(timing, "phase", record)
+    g = torch.Generator().manual_seed(7)
+    left = torch.randint(0, 256, (12, 160), generator=g).float()
+    right = torch.roll(left, -5, 1)
+    cfg = stereo.StereoConfig(aggregation="sgm", cost="census", **over)
+    disp = stereo.disparity(left, right, cfg)
+    assert opened == want
+    assert (disp > 0).any()
+
+
 def keys():
     return [("end", "end"), ("start", "step"), ("phase", "superpixel"),
             ("phase", "planefit"), ("phase", "fuse"), ("phase", "append"),
