@@ -641,6 +641,60 @@ def phase_sgm_kernels(device) -> dict:
     say("sgm", f"disparity() with the kernels equals the plain path; "
         f"{float((d_k > 0).float().mean()):.4f} of pixels valid")
 
+    # the census aggregate above 128 planes (sgm_census_lines: B4's line
+    # kernel and combine pass reading the Hamming cost from the census
+    # images) at the d192 deployment's D' 191 from 1, 8 and 4 paths, both
+    # carries: bitwise its plain twin (which builds and scans the volume),
+    # two calls of the entry a call and no other SGM kernel.  Every line
+    # kernel record of those calls falls under the entry's names
+    # (`KERNEL_RECORDS`), none under B4's on a volume.  The launch counts
+    # are the wrapper's, exact; of the profiler's records the H100 kept one
+    # of the two line-kernel records of each such window in this process
+    # (4 of 8; a fill first as the window's first record changed nothing;
+    # in a fresh process 2 of 2, and the first of 3 calls lost), so at
+    # least one a window is asked for
+    wide_min, wide_d = 1, 191
+    lines = []
+    for v_rolls in (rolls, (0,)):
+        for bf16 in (False, True):
+            tag = f"D' {wide_d} {2 + 2 * len(v_rolls)} paths bf16={bf16}"
+            with device_records() as recs:
+                got, n = counted(lambda: K.census_aggregate(
+                    cl, cr, v_rolls, p1, p2, wide_min, wide_d, bf16))
+            require(n["sgm_census_lines"] == 2 and n["sgm_axis_scan"]
+                    == n["sgm_census_x"] == n["sgm_census_y"] == 0,
+                    f"census_aggregate {tag}: launches {n}")
+            seen = [r for _, r in recs if "scan_lines_kernel" in r]
+            require(len(seen) >= 1, f"census_aggregate {tag}: no "
+                    f"line-kernel record of its 2 launches")
+            lines += seen
+            same(f"census_aggregate {tag}", got, P.census_aggregate(
+                cl, cr, v_rolls, p1, p2, wide_min, wide_d, bf16))
+            del got
+    runs, names = record_runs(lines), set(lines)
+    require(runs["sgm_census_lines"] == len(lines)
+            and runs["sgm_axis_scan"] == 0
+            and len(lines) <= 8,
+            f"census_aggregate D' {wide_d}: {len(lines)} line-kernel "
+            f"records of 8 launches, by entry {runs}, names {names}")
+    # ... and B4's line kernel on a volume falls under sgm_axis_scan's
+    vx = S._census_volume(ccl, ccr, 3, 150).permute(2, 1, 0).contiguous()
+    with device_records() as recs:
+        for _ in range(4):
+            K.axis_scan(vx, (0,), p1, p2, False, "x", 3)
+    vol = [r for _, r in recs if "scan_lines_kernel" in r]
+    runs = record_runs(vol)
+    require(runs["sgm_axis_scan"] == len(vol) >= runs_floor(4, 1, 0)
+            and runs["sgm_census_lines"] == 0,
+            f"sgm_axis_scan on a volume at D = 150: {len(vol)} line-kernel "
+            f"records of 4 launches, by entry {runs}, names {set(vol)}")
+    say("sgm", f"census_aggregate (sgm_census_lines) equals its plain twin "
+        f"bitwise on the KITTI pair: f32 ({wide_d}, {h}, {w}), min_d "
+        f"{wide_min}, 8 and 4 paths, f32 and bf16 carries; 2 calls of "
+        f"sgm_census_lines a call, no other SGM kernel; {len(lines)} of 8 "
+        f"line-kernel records seen, all sgm_census_lines' ({names}), and "
+        f"{len(vol)} of 4 of B4 on a volume, all sgm_axis_scan's")
+
     # time per launch; the plain twins run fewer reps
     buf = torch.zeros((n_d, h, w), dtype=torch.float32, device=device)
     census_bytes = 2 * h * w * 4
@@ -678,19 +732,47 @@ def phase_sgm_kernels(device) -> dict:
             cuda_time_ms(lambda: P.axis_scan(v, r, p1, p2, False, e, min_d),
                          reps=1, warmup=1))
         say("sgm", time_line(f"sgm_axis_scan {e} family ({kname})", fam[e]))
-    t_b4 = {k: (fam["x"]["time"][k] + fam["y"]["time"][k]) / 2
-            for k in fam["x"]["time"] if k != "per_us"}
-    t_b4["per_us"] = [(a + b) / 2 for a, b in zip(fam["x"]["time"]["per_us"],
-                                                  fam["y"]["time"]["per_us"])]
-    out["sgm_axis_scan"] = timed(dict(
+    out["sgm_axis_scan"] = mean_record(fam)
+    # sgm_census_lines launches twice a call at D' 191: the x family and
+    # the y family of 8 paths, each a line-kernel and a combine record
+    # (twice the records of a one-kernel call at a window's edges, so up to
+    # 4 of 20 calls may go uncounted).  Each family reads the two census
+    # images and writes its f32 family; 2 len(r) paths
+    wcells = wide_d * h * w
+    fam = {}
+    for r, e in (((0,), "x"), (rolls, "y")):
+        t = kernel_time(lambda: K._census_lines_family(
+            cl, cr, r, e, p1, p2, wide_min, wide_d, False),
+            ("scan_lines_kernel", "combine_axis_kernel"), drop=4)
+        twin = (functools.partial(P.census_x_family, cl, cr) if e == "x"
+                else functools.partial(P.census_y_family, cl, cr, r))
+        fam[e] = timed(dict(**bound(census_bytes + wcells * 4,
+                                    2 * len(r) * wcells * 10)), t,
+                       cuda_time_ms(lambda: twin(p1, p2, wide_min, wide_d),
+                                    reps=1, warmup=1))
+        say("sgm", time_line(f"sgm_census_lines {e} family, D' {wide_d}",
+                             fam[e]))
+    out["sgm_census_lines"] = mean_record(fam)
+    for name in ("sgm_census_x", "sgm_census_y", "sgm_axis_scan",
+                 "sgm_census_lines"):
+        say("sgm", time_line(name, out[name]))
+    return out
+
+
+def mean_record(fam: dict) -> dict:
+    """One kernel record of a wrapper timed per family (`fam["x"]`,
+    `fam["y"]`): the mean of the two families' times, bounds and plain
+    twins."""
+    t = {k: (fam["x"]["time"][k] + fam["y"]["time"][k]) / 2
+         for k in fam["x"]["time"] if k != "per_us"}
+    t["per_us"] = [(a + b) / 2 for a, b in zip(fam["x"]["time"]["per_us"],
+                                               fam["y"]["time"]["per_us"])]
+    return timed(dict(
         max_abs_err=0.0,
         bound_ms=(fam["x"]["bound_ms"] + fam["y"]["bound_ms"]) / 2,
         bound_by=("bytes" if fam["x"]["bound_by"] == fam["y"]["bound_by"]
-                  == "bytes" else "operations")), t_b4,
+                  == "bytes" else "operations")), t,
         (fam["x"]["plain_ms"] + fam["y"]["plain_ms"]) / 2)
-    for name in ("sgm_census_x", "sgm_census_y", "sgm_axis_scan"):
-        say("sgm", time_line(name, out[name]))
-    return out
 
 
 WTA_OPTIONS = ((True, 0.95), (False, 0.0), (True, 0.0), (False, 0.95))
@@ -1116,7 +1198,9 @@ KERNEL_RECORDS = {
     "slic_centroid": ("slic_centroid_kernel",),
     "slic_huber": ("slic_huber_kernel",),
     "sgm_axis_scan": ("axis_line_kernel", "axis_band_kernel",
-                      "scan_lines_kernel"),
+                      "VolumeCost"),
+    # the line kernel on census images: scan_lines_kernel<CensusCost, .>
+    "sgm_census_lines": ("CensusCost",),
     "sgm_census_y": ("census_y_kernel",),
     "sgm_census_x": ("census_x_kernel",),
     "wta_scan": ("wta_scan_kernel",)}
@@ -1191,6 +1275,13 @@ def device_records():
     fill_records(names, prof)
 
 
+def record_runs(names) -> dict:
+    """{kernel: how many of the device records `names` are its runs, by
+    `KERNEL_RECORDS`}."""
+    return {k: sum(any(p in n for p in parts) for n in names)
+            for k, parts in KERNEL_RECORDS.items()}
+
+
 def executed(fn):
     """fn() under the profiler (`device_records`), with every kernel count
     and the count of captured graphs set to 0 just before and read just
@@ -1211,9 +1302,7 @@ def executed(fn):
     cards = sorted({c for c, _ in records})
 
     def runs_on(on):
-        return {k: sum(any(p in n for p in parts)
-                       for c, n in records if on(c))
-                for k, parts in KERNEL_RECORDS.items()}
+        return record_runs([n for c, n in records if on(c)])
     return res, dict(calls=calls, runs=runs_on(lambda c: True),
                      card_runs={card: runs_on(lambda c: c == card)
                                 for card in cards},
@@ -4373,7 +4462,8 @@ def multicard_checks(n_cards: int, frames, pairs) -> dict:
                 coop = (f"; B5's node cooperative in the mesh graph on "
                         f"every card ({per} by card, grid x block "
                         f"{sorted({(gx, bx) for _, gx, bx in coops})})")
-            ran = {c: {k: n for k, n in r.items() if per_cell[kind][k]}
+            ran = {c: {k: n for k, n in r.items()
+                       if per_cell[kind].get(k)}
                    for c, r in sorted(ex["card_runs"].items())}
             say("multicard", f"{label}, {kind} drive ({steps} "
                 f"{'pairs' if kind == 'stereo' else 'frames'}), graphed "
@@ -4577,7 +4667,8 @@ def main() -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     launches = dict.fromkeys(("slic_assign", "slic_centroid", "slic_huber",
                               "sgm_axis_scan", "sgm_census_y",
-                              "sgm_census_x", "wta_scan"), 0)
+                              "sgm_census_x", "sgm_census_lines",
+                              "wta_scan"), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -4668,7 +4759,8 @@ def main() -> None:
     for name, src, line in (
             ("slic_assign", "slic", 241), ("slic_centroid", "slic", 330),
             ("slic_huber", "slic", 397), ("sgm_axis_scan", "sgm", 181),
-            ("sgm_census_y", "sgm", 382), ("sgm_census_x", "sgm", 497)):
+            ("sgm_census_y", "sgm", 382), ("sgm_census_x", "sgm", 497),
+            ("sgm_census_lines", "sgm", 181)):
         rec = records[name]
         entry = dict(
             name=name, route="cuda",

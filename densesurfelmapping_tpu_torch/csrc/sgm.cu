@@ -50,7 +50,10 @@
 // Only for 128 < D <= 1024 (more planes than a warp holds) does B4 keep its
 // first design: every scanline its own block, one thread per plane, one
 // block barrier per step, one f32 scratch slab per direction and a combine
-// pass for the roll-order sum.
+// pass for the roll-order sum.  That route also serves the census aggregate
+// above 128 planes (sgm_census_lines): the same line kernel and combine, the
+// cost computed from the two census images (CensusCost, as B5/B6 compute
+// it) in place of a volume read, so no (D, H, W) volume is built.
 //
 // Designs tried and not kept: a 16-CTA thread-block cluster per orientation
 // for B5, with the halos in distributed shared memory, runs the scan on 32
@@ -119,12 +122,40 @@ __device__ __forceinline__ float dp_step(float carry, float cost, int D,
 // volume.
 struct VolumeCost {
   const __nv_bfloat16* v;
-  int R, D;
+  int L, R, D;
   __device__ float operator()(int t, int r, int d) const {
     return __bfloat162float(v[(static_cast<size_t>(t) * R + r) * D + d]);
   }
-  // the volume `off` elements on (the next stream's, off = L R D)
-  __device__ VolumeCost at(size_t off) const { return {v + off, R, D}; }
+  // stream z's volume, z L R D elements on
+  __device__ VolumeCost stream(int z) const {
+    return {v + static_cast<size_t>(z) * L * R * D, L, R, D};
+  }
+};
+
+// Cost of plane d at scan step t, row r computed from two (H, W) int32
+// census images, as the materialized census volume holds it: the Hamming
+// distance popc(cl[y, x] ^ cr[y, x - d - min_d]), or 9984 (bf16(1e4))
+// where x < d + min_d.  along_x: the x family (steps t = x, rows r = y);
+// else the y family (t = y, r = x).
+struct CensusCost {
+  const int* cl;
+  const int* cr;
+  int H, W, min_d;
+  bool along_x;
+  // (no branch: an out-of-range plane loads column 0 and discards it; the
+  // scan step is bound by instruction issue, so the cost is kept short)
+  __device__ float operator()(int t, int r, int d) const {
+    const int x = along_x ? t : r;
+    const int row = (along_x ? r : t) * W;
+    const int xr = x - d - min_d;
+    const int h = __popc(__ldg(cl + row + x) ^ __ldg(cr + row + max(xr, 0)));
+    return xr < 0 ? kBigBf16 : static_cast<float>(h);
+  }
+  // stream z's images, z H W elements on
+  __device__ CensusCost stream(int z) const {
+    const size_t off = static_cast<size_t>(z) * H * W;
+    return {cl + off, cr + off, H, W, min_d, along_x};
+  }
 };
 
 // B4 line kernel: one block per (line, slab, stream); slab = orientation *
@@ -132,8 +163,9 @@ struct VolumeCost {
 // run along axis 0 (L), rows r along axis 1 (R); the line of a block is (t,
 // r) -> (t + dt, r + roll) from a start on the first step (any r) or on the
 // border row the roll restarts (r = 0 for roll +1, R - 1 for roll -1).  The
-// stream is grid z: stream z's volume starts z L R D elements on, and its
-// 2g slabs follow the 2g slabs of stream z - 1.  Writes L' of every (t, r, d)
+// cost comes from `cost` (VolumeCost or CensusCost).  The stream is grid z:
+// stream z's cost is cost.stream(z), and its 2g slabs follow the 2g slabs of
+// stream z - 1.  Writes L' of every (t, r, d)
 // to scratch[z * 2g + slab][(t * R + r) * D + d].
 // entry: 0 none; 1 forward orientation at d + min_d == t (scan axis =
 // image x); 2 roll == +1 directions at d + min_d == r (rows = image x).
@@ -161,7 +193,7 @@ __global__ void scan_lines_kernel(Cost cost, float* __restrict__ scratch,
   }
   const int d = threadIdx.x;
   const size_t slab_size = static_cast<size_t>(L) * R * D;
-  const Cost c_at = cost.at(blockIdx.z * slab_size);
+  const Cost c_at = cost.stream(blockIdx.z);
   float* out =
       scratch + (static_cast<size_t>(blockIdx.z) * 2 * g + slab) * slab_size;
   const float p1v = BF16 ? round_bf16(p1) : p1;
@@ -216,6 +248,40 @@ __global__ void combine_axis_kernel(const float* __restrict__ scratch,
 int line_threads(int D) { return ((D + 31) / 32) * 32; }
 
 size_t line_smem(int threads) { return (2 * threads + 64) * sizeof(float); }
+
+// B4's wide route over nb streams: the line kernel on `cost` (grid z =
+// stream) into the f32 scratch of nb * 2g slabs of L R D, then the combine
+// pass into out (nb, L, R, D); two launches whatever nb is.
+template <class Cost>
+int run_lines(const Cost& cost, float* scratch, float* out, int nb, int L,
+              int R, int D, int g, int roll0, int roll1, int roll2,
+              float p1, float p2, int carry_bf16, int entry, int min_d,
+              cudaStream_t s) {
+  const int threads = line_threads(D);
+  const dim3 grid(R + L - 1, 2 * g, nb);
+  if (carry_bf16) {
+    scan_lines_kernel<Cost, true><<<grid, threads, line_smem(threads), s>>>(
+        cost, scratch, L, R, D, g, roll0, roll1, roll2, p1, p2, entry, min_d);
+  } else {
+    scan_lines_kernel<Cost, false><<<grid, threads, line_smem(threads), s>>>(
+        cost, scratch, L, R, D, g, roll0, roll1, roll2, p1, p2, entry, min_d);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t n = static_cast<size_t>(L) * R * D;
+  const size_t total = n * nb;
+  const int blocks = static_cast<int>((total + 255) / 256 < 132 * 16
+                                          ? (total + 255) / 256
+                                          : 132 * 16);
+  if (carry_bf16) {
+    combine_axis_kernel<true><<<blocks, 256, 0, s>>>(scratch, out, n, total,
+                                                     g);
+  } else {
+    combine_axis_kernel<false><<<blocks, 256, 0, s>>>(scratch, out, n, total,
+                                                      g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // ---------------------------------------------------------------------------
 // The warp step of B5 and B6.  Lane l holds planes 4l + j (j = 0..3) in
@@ -1647,36 +1713,32 @@ int sgm_axis_lines(const void* v, float* scratch, float* out, int nb, int L,
                    void* stream) {
   if (D < 1 || D > kMaxThreads || g < 1 || g > 3 || nb < 1 || nb > 65535)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const VolumeCost cost{static_cast<const __nv_bfloat16*>(v), R, D};
-  const int threads = line_threads(D);
-  const dim3 grid(R + L - 1, 2 * g, nb);
-  if (carry_bf16) {
-    scan_lines_kernel<VolumeCost, true>
-        <<<grid, threads, line_smem(threads), s>>>(
-            cost, scratch, L, R, D, g, roll0, roll1, roll2, p1, p2, entry,
-            min_d);
-  } else {
-    scan_lines_kernel<VolumeCost, false>
-        <<<grid, threads, line_smem(threads), s>>>(
-            cost, scratch, L, R, D, g, roll0, roll1, roll2, p1, p2, entry,
-            min_d);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(L) * R * D;
-  const size_t total = n * nb;
-  const int blocks = static_cast<int>((total + 255) / 256 < 132 * 16
-                                          ? (total + 255) / 256
-                                          : 132 * 16);
-  if (carry_bf16) {
-    combine_axis_kernel<true><<<blocks, 256, 0, s>>>(scratch, out, n, total,
-                                                     g);
-  } else {
-    combine_axis_kernel<false><<<blocks, 256, 0, s>>>(scratch, out, n, total,
-                                                      g);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const VolumeCost cost{static_cast<const __nv_bfloat16*>(v), L, R, D};
+  return run_lines(cost, scratch, out, nb, L, R, D, g, roll0, roll1, roll2,
+                   p1, p2, carry_bf16, entry, min_d,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// B4's wide route with the cost read from B streams' census images cl, cr
+// (B, H, W) in place of a materialized volume: one family of the census
+// aggregate -> f32 out (B, L, R, D), bitwise what sgm_axis_lines gives on
+// the census volume permuted to that family's (L, R, D).  entry 1: the x
+// family (L = W, R = H); entry 2: the y family (L = H, R = W); any roll set
+// of 1-3 shifts.  scratch: B * 2 * g * H * W * D floats; two
+// launches whatever B is.
+int sgm_census_lines(const int* cl, const int* cr, float* scratch,
+                     float* out, int nb, int H, int W, int D, int g,
+                     int roll0, int roll1, int roll2, float p1, float p2,
+                     int carry_bf16, int entry, int min_d, void* stream) {
+  if (D < 1 || D > kMaxThreads || g < 1 || g > 3 || nb < 1 || nb > 65535 ||
+      H < 1 || W < 1 || static_cast<long long>(H) * W >= (1LL << 31) ||
+      min_d < 0 || (entry != 1 && entry != 2))
+    return cudaErrorInvalidValue;
+  const bool along_x = entry == 1;
+  const CensusCost cost{cl, cr, H, W, min_d, along_x};
+  return run_lines(cost, scratch, out, nb, along_x ? W : H, along_x ? H : W,
+                   D, g, roll0, roll1, roll2, p1, p2, carry_bf16, entry,
+                   min_d, static_cast<cudaStream_t>(stream));
 }
 
 // B4 for D <= 128 over B streams' volumes (B, L, R, D) -> f32 out (B, L, R,

@@ -61,7 +61,8 @@ class StereoConfig(NamedTuple):
     census_radius: int = 2        # 5x5 -> 24 neighbor bits
     census_ceiling: float = 16.0  # per-path census cost gate (0..24)
     # census + kernels: Hamming cost computed inside the scan kernels, the
-    # (D', H, W) cost volume never materializes (0 < D' < 128 only)
+    # (D', H, W) cost volume never materializes (0 < D' < 128 on B5/B6,
+    # 128 < D' <= 1024 on B4's line kernel; D' == 128 builds it)
     sgm_fused_census: bool = True
     uniqueness_ratio: float = 0.95  # best < ratio * second; 0 disables
     post_median: bool = True      # masked 3x3 median gate + hole fill
@@ -411,21 +412,33 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
     """Semi-global-matching disparity: 4/8-path aggregation, then the WTA
     and gates of `_wta_and_gates`.
 
-    With sgm_pallas, census cost, sgm_fused_census and 0 < D' < 128 the
-    aggregation is `census_aggregate` (B6 + B5 on a CUDA tensor: the cost
-    volume never materializes); otherwise the volume is built and
+    With sgm_pallas, census cost and sgm_fused_census the aggregation is
+    `census_aggregate`, and the cost volume never materializes: for 0 < D'
+    < 128 B6 + B5 on a CUDA tensor, in one phase; for 128 < D' <= 1024
+    B4's line kernel reading its cost from the census images, in the
+    materialized route's two phases (`stereo_volume` holds the census
+    images alone).  Otherwise (D' == 128 too) the volume is built and
     `_sgm_aggregate` scans it (B4 on a CUDA tensor with sgm_pallas)."""
     n_d = cfg.max_disparity - cfg.min_disparity
-    if (cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
-            and 0 < n_d < 128):
+    fused = cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
+
+    def census_agg(cl, cr):
+        from ..ops.cuda.sgm import census_aggregate
+        v_rolls = (0,) if cfg.sgm_paths == 4 else (0, 1, -1)
+        return census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
+                                cfg.min_disparity, n_d,
+                                carry_bf16=cfg.sgm_carry_bf16)
+
+    if fused and 0 < n_d < 128:
         with timing.phase("stereo_aggregate", left.device):
-            from ..ops.cuda.sgm import census_aggregate
+            agg = census_agg(_census(left, cfg.census_radius),
+                             _census(right, cfg.census_radius))
+    elif fused and 128 < n_d <= 1024:
+        with timing.phase("stereo_volume", left.device):
             cl = _census(left, cfg.census_radius)
             cr = _census(right, cfg.census_radius)
-            v_rolls = (0,) if cfg.sgm_paths == 4 else (0, 1, -1)
-            agg = census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
-                                   cfg.min_disparity, n_d,
-                                   carry_bf16=cfg.sgm_carry_bf16)
+        with timing.phase("stereo_scan", left.device):
+            agg = census_agg(cl, cr)
     else:
         # two phases: the volume's build, then its two permuted copies and
         # both families' scans (B4) with their sum
@@ -659,8 +672,8 @@ def _wta_and_gates(left: torch.Tensor, agg: torch.Tensor, cfg: StereoConfig,
 
     if cfg.wta_streaming:
         # the WTA kernel on a CUDA tensor, `_wta_scan` on a CPU tensor; the
-        # kernel takes a contiguous volume, which `_sgm_aggregate`'s sum of
-        # two permuted families need not be
+        # kernel takes a contiguous volume, which the sum of two permuted
+        # families (`_sgm_aggregate`, B4's census route) need not be
         from ..ops.cuda.wta import wta_scan
         idx, best, cm, cp, second, bestR_d, prior3 = wta_scan(
             agg.contiguous(), cfg.min_disparity, cfg.subpixel,

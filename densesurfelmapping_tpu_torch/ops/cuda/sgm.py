@@ -14,7 +14,12 @@ falls back.  `LAUNCHES` counts the calls of each kernel entry:
   warp per row and orientation, meeting at mid-row);
 * sgm_census_y (B5): the vertical + diagonal family (one block per SM,
   bands of columns exchanging edge carries, a cooperative launch; the two
-  orientations meet at mid-image).
+  orientations meet at mid-image);
+* sgm_census_lines: one family of the census aggregate above 128 planes
+  (128 < n_d <= 1024), B4's line kernel and combine pass with the Hamming
+  cost computed from the census images in place of a volume read (one
+  call, one count: two launches); `census_aggregate` makes two calls, the
+  x family and the y family, and no (n_d, H, W) volume is built.
 
 Stream axis: every wrapper also takes operands with a leading (B,) axis,
 the B streams of the stereo fleet's round, and launches each kernel ONCE
@@ -23,7 +28,7 @@ runs), where the JAX package's `jax.vmap` of the fuse step gives each
 `pallas_call` a stream axis on its grid: B6 and B4's line kernel take the
 stream on grid y; B5 and B4's band kernel, cooperative launches of one
 block per SM, keep their grid and walk the streams in each block; B4's
-wide route (128 < D <= 1024, in no measured configuration) takes the
+wide route (128 < D <= 1024), on a volume or on census images, takes the
 stream on its line kernel's grid z and covers every stream in one combine
 pass.  Inside a `torch.func.vmap` of the stereo step
 (`parallel/multistream.py`; a mesh cell's streams in
@@ -47,11 +52,13 @@ from .. import sgm as plain
 from . import build
 from .slic import _batch_operands, _check, _check_streams, _in_vmap
 
-LAUNCHES = {"sgm_axis_scan": 0, "sgm_census_y": 0, "sgm_census_x": 0}
+LAUNCHES = {"sgm_axis_scan": 0, "sgm_census_y": 0, "sgm_census_x": 0,
+            "sgm_census_lines": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sgm_axis_lines": [_P] * 3 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
+    "sgm_census_lines": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_axis_warp": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 8 + [_P],
     "sgm_census_x": [_P] * 4 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_census_y": [_P] * 5 + [_I] * 8 + [_F, _F] + [_I] * 7 + [_P],
@@ -288,14 +295,14 @@ def axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
     return _launch_axis_scan(v, *args)
 
 
-def _census_args(census_l, census_r, min_d, n_d):
+def _census_args(census_l, census_r, min_d, n_d, max_d=128):
     """(lead, H, W, the census pointers, the current stream): lead is ()
     for one stream's (H, W) images, (B,) for B streams' (B, H, W)."""
     dev = census_l.device
     if dev.type != "cuda":
         raise ValueError(f"the SGM kernels run on CUDA tensors, got {dev}")
-    if not 1 <= n_d <= 128 or min_d < 0:
-        raise ValueError(f"census kernels take 1 <= n_d <= 128 and "
+    if not 1 <= n_d <= max_d or min_d < 0:
+        raise ValueError(f"census kernels take 1 <= n_d <= {max_d} and "
                          f"min_d >= 0, got n_d={n_d}, min_d={min_d}")
     if census_l.dim() not in (2, 3):
         raise ValueError(f"census_l must be (H, W) or (B, H, W), got "
@@ -491,8 +498,48 @@ def _launch_census_y(census_l, census_r, out, v_rolls, p1, p2, min_d,
     return out
 
 
+def _census_lines_family(census_l, census_r, rolls, entry, p1, p2, min_d,
+                         n_d, carry_bf16):
+    """One family of the census aggregate above 128 planes, a
+    `sgm_census_lines` call on B4's wide-route geometry (`axis_plan` over
+    the family's (L, R)): entry "x" -> f32 lead + (W, H, n_d), rolls (0);
+    entry "y" -> lead + (H, W, n_d), the matcher's rolls.  Its scratch is
+    freed on return."""
+    lead, H, W, cl, cr, stream = _census_args(census_l, census_r, min_d, n_d,
+                                              max_d=1024)
+    dev = census_l.device
+    L, R = (W, H) if entry == "x" else (H, W)
+    fp = axis_plan(L, R, n_d, rolls, _sms(dev), lead[0] if lead else 1)
+    r0, r1, r2 = _rolls(rolls)
+    scratch = torch.empty(fp.scratch_shape, dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (L, R, n_d), dtype=torch.float32, device=dev)
+    err = _lib().sgm_census_lines(
+        cl, cr, scratch.data_ptr(), out.data_ptr(), fp.streams, H, W, n_d,
+        fp.g, r0, r1, r2, float(p1), float(p2), int(bool(carry_bf16)),
+        _ENTRY[entry], int(min_d), stream)
+    _launched("sgm_census_lines", err)
+    return out
+
+
+def _launch_census_lines(census_l, census_r, v_rolls, p1, p2, min_d, n_d,
+                         carry_bf16):
+    """The census aggregate above 128 planes: the x family + the y family,
+    summed as `models/stereo._sgm_aggregate` sums them."""
+    opts = (p1, p2, min_d, n_d, carry_bf16)
+    x = _census_lines_family(census_l, census_r, (0,), "x", *opts)
+    y = _census_lines_family(census_l, census_r, v_rolls, "y", *opts)
+    if x.dim() == 4:
+        return x.permute(0, 3, 2, 1) + y.permute(0, 3, 1, 2)
+    return x.permute(2, 1, 0) + y.permute(2, 0, 1)
+
+
 def _launch_census_aggregate(census_l, census_r, v_rolls, p1, p2, min_d,
                              n_d, carry_bf16):
+    # the route by the number of planes: B6 + B5 hold 4 planes a lane (n_d
+    # <= 128), B4's line kernel one a thread (n_d <= 1024)
+    if n_d > 128:
+        return _launch_census_lines(census_l, census_r, v_rolls, p1, p2,
+                                    min_d, n_d, carry_bf16)
     out = _launch_census_x(census_l, census_r, p1, p2, min_d, n_d,
                            carry_bf16)
     return _launch_census_y(census_l, census_r, out, v_rolls, p1, p2, min_d,
@@ -568,11 +615,15 @@ def census_y(census_l: torch.Tensor, census_r: torch.Tensor,
 def census_aggregate(census_l: torch.Tensor, census_r: torch.Tensor,
                      v_rolls, p1: float, p2: float, min_d: int, n_d: int,
                      carry_bf16: bool = False) -> torch.Tensor:
-    """B6 + B5: 4/8-path SGM aggregation straight from (H, W) int32 census
-    images -> f32 (n_d, H, W), x family + y family; the cost volume never
-    materializes.  (B, H, W) images, or a call under torch.func.vmap (the
-    stereo fleet's round), run one launch of each kernel for the B streams
-    -> (B, n_d, H, W).  Plain twin: `ops/sgm.census_aggregate`."""
+    """4/8-path SGM aggregation straight from (H, W) int32 census images
+    -> f32 (n_d, H, W), x family + y family; the cost volume never
+    materializes.  On a CUDA tensor 1 <= n_d <= 1024: B6 +
+    B5 up to 128 planes, above that B4's line kernel and combine pass once
+    per family with the cost computed from the census images (bitwise B4
+    on the census volume).  (B, H, W) images, or a call under
+    torch.func.vmap (the stereo fleet's round), run one launch of each
+    kernel for the B streams -> (B, n_d, H, W).  Plain twin:
+    `ops/sgm.census_aggregate`."""
     args = (census_l, census_r, v_rolls, p1, p2, min_d, n_d, carry_bf16)
     if census_l.device.type == "cpu":
         if census_l.dim() == 3:

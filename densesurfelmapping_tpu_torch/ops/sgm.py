@@ -50,8 +50,8 @@ def census_aggregate(census_l: torch.Tensor, census_r: torch.Tensor,
                      carry_bf16: bool = False) -> torch.Tensor:
     """4/8-path SGM aggregation straight from (H, W) int32 census images:
     the f32 (n_d, H, W) volume x family + y family, each the f32 sum of its
-    two bf16 orientations (twin of B6 + B5).  Here the census cost volume
-    is built and scanned."""
+    two bf16 orientations (twin of B6 + B5, and above 128 planes of B4's
+    census route).  Here the census cost volume is built and scanned."""
     return (census_x_family(census_l, census_r, p1, p2, min_d, n_d,
                             carry_bf16)
             + census_y_family(census_l, census_r, v_rolls, p1, p2, min_d,

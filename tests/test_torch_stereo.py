@@ -167,6 +167,26 @@ def test_disparity_matches_jax(pair, case):
     np.testing.assert_array_equal(got, want, err_msg=case)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("paths", [4, 8])
+def test_disparity_d192_matches_jax(paths, fused):
+    """max_disparity 192 (D' 191, the census route above 128 planes when
+    fused, the materialized volume when not) against the JAX package's
+    materialized volume and scans, on a pair whose disparity, 150, lies
+    past plane 127."""
+    g = np.random.default_rng(5)
+    li = g.integers(0, 256, (14, 230)).astype(np.float32)
+    ri = np.roll(li, -150, 1)
+    kw = dict(aggregation="sgm", max_disparity=192, sgm_paths=paths)
+    want = np.asarray(jstereo.jitted_disparity(jstereo.StereoConfig(
+        **dict(kw, sgm_pallas=False)))(jnp.asarray(li), jnp.asarray(ri)))
+    got = tstereo.disparity(torch.from_numpy(li), torch.from_numpy(ri),
+                            tstereo.StereoConfig(
+                                **kw, sgm_fused_census=fused)).numpy()
+    assert (want > 128).any()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("aggregation", ["sgm", "box"])
 def test_prior_rescue_matches_jax(pair, aggregation):
     li, ri, ld = pair
