@@ -310,7 +310,7 @@ def phase_build() -> None:
 
     mods = (("slic", slic), ("sgm", sgm), ("wta", wta))
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
-        futs = {name: pool.submit(timed, mod._lib) for name, mod in mods}
+        futs = {name: pool.submit(timed, mod._LIB.load) for name, mod in mods}
         secs = {name: f.result() for name, f in futs.items()}
     for name, _ in mods:
         say("build", f"{name}.cu built and loaded in {secs[name]:.1f} s")
@@ -757,6 +757,60 @@ def phase_sgm_kernels(device) -> dict:
                  "sgm_census_lines"):
         say("sgm", time_line(name, out[name]))
     return out
+
+
+def phase_d128(device) -> None:
+    """B6 + B5 at n_d = 128, the most planes they hold (`plane_route`), from
+    0 and from 1: bitwise the plain twin `ops/sgm.census_aggregate` (8 and 4
+    paths, f32 and bf16 carries), one launch of each and no other SGM kernel
+    a call; then the matcher at D' = 128, which takes that route, equal to
+    its materialized route (B4).  Part of the `sgm` phase, run after every
+    other phase: after this much twin work at KITTI size the H100's profiler
+    loses a kernel record in every later window of the process (19 of 20
+    census_x records a window, where 20 of 20 before), which the record
+    checks of the other phases would read as missing launches."""
+    from densesurfelmapping_tpu_torch.config import kitti_config
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.models import stereo as S
+    from densesurfelmapping_tpu_torch.ops import sgm as P
+    from densesurfelmapping_tpu_torch.ops.cuda import sgm as K
+
+    scfg = sgm_config()
+    li, ri, _ = stereo_pair(kitti_config(), synthetic.forward_trajectory(
+        N_STEREO_FRAMES + 3, step=0.4)[0])
+    left = torch.from_numpy(li).to(device).float()
+    right = torch.from_numpy(ri).to(device).float()
+    cl, cr = (S._census(x, scfg.census_radius) for x in (left, right))
+    p1, p2 = scfg.sgm_p1, scfg.sgm_p2
+    require(K.plane_route(128) == "warp", "n_d 128 is not on B6 + B5")
+    for start in (0, 1):
+        for v_rolls in ((0, 1, -1), (0,)):
+            for bf16 in (False, True):
+                tag = (f"n_d 128 from {start}, {2 + 2 * len(v_rolls)} paths "
+                       f"bf16={bf16}")
+                got, n = counted(lambda: K.census_aggregate(
+                    cl, cr, v_rolls, p1, p2, start, 128, bf16))
+                require(n["sgm_census_x"] == n["sgm_census_y"] == 1
+                        and n["sgm_census_lines"] == n["sgm_axis_scan"] == 0,
+                        f"census_aggregate {tag}: launches {n}")
+                want = P.census_aggregate(cl, cr, v_rolls, p1, p2, start,
+                                          128, bf16)
+                require(bool(torch.equal(got, want)), f"census_aggregate "
+                        f"{tag}: differs from its plain twin")
+    d128 = scfg._replace(max_disparity=129)
+    fused, n = counted(lambda: S.disparity(left, right, d128))
+    require(n["sgm_census_x"] == n["sgm_census_y"] == 1
+            and n["sgm_axis_scan"] == 0, f"disparity D' 128: launches {n}")
+    volume, n = counted(lambda: S.disparity(
+        left, right, d128._replace(sgm_fused_census=False)))
+    require(n["sgm_axis_scan"] == 2 and n["sgm_census_x"] == 0,
+            f"disparity D' 128, fused off: launches {n}")
+    require(bool(torch.equal(fused, volume)), "disparity D' 128: B6 + B5 "
+            "and B4 on the volume differ")
+    say("sgm", "census_aggregate at n_d 128 (from 0 and 1, 8 and 4 paths, "
+        "f32 and bf16 carries) equals ops/sgm.census_aggregate bitwise, one "
+        "sgm_census_x and one sgm_census_y launch a call; disparity() at "
+        "D' 128 on B6 + B5 equals its materialized route on B4")
 
 
 def mean_record(fam: dict) -> dict:
@@ -4751,6 +4805,9 @@ def main() -> None:
     if run("profile"):
         phase_profile(device)
         lap("profile")
+    if run("sgm"):
+        phase_d128(device)
+        lap("sgm at n_d 128")
     if only is not None:
         say("done", f"partial run of {sorted(only)}: launches {launches}")
         return

@@ -61,8 +61,8 @@ class StereoConfig(NamedTuple):
     census_radius: int = 2        # 5x5 -> 24 neighbor bits
     census_ceiling: float = 16.0  # per-path census cost gate (0..24)
     # census + kernels: Hamming cost computed inside the scan kernels, the
-    # (D', H, W) cost volume never materializes (0 < D' < 128 on B5/B6,
-    # 128 < D' <= 1024 on B4's line kernel; D' == 128 builds it)
+    # (D', H, W) cost volume never materializes, for every D' that
+    # `ops/cuda/sgm.plane_route` gives a route (B6 + B5, or B4's line kernel)
     sgm_fused_census: bool = True
     uniqueness_ratio: float = 0.95  # best < ratio * second; 0 disables
     post_median: bool = True      # masked 3x3 median gate + hole fill
@@ -270,13 +270,6 @@ def _cost_volume(left: torch.Tensor, right: torch.Tensor,
     return torch.stack(costs)
 
 
-def _cost_volume_scan(left: torch.Tensor, right: torch.Tensor,
-                      cfg: StereoConfig) -> torch.Tensor:
-    """The JAX package builds the kernels' volume with a scan over d; here
-    it is the same tensor as `_cost_volume`."""
-    return _cost_volume(left, right, cfg)
-
-
 def _sgm_dp(L_prev: torch.Tensor, c: torch.Tensor, p1: float, p2: float,
             clamp: float | None = None,
             kernel_grouping: bool = False) -> torch.Tensor:
@@ -380,7 +373,7 @@ def _sgm_aggregate(vol: torch.Tensor, p1: float, p2: float, n_paths: int,
                    min_d: int = 0) -> torch.Tensor:
     """4- or 8-path semi-global aggregation of a (D, H, W) cost volume;
     returns the f32 summed volume (horizontal family + vertical/diagonal
-    family, in that order).
+    family, in that order: `ops/sgm.family_sum`).
 
     use_kernels: the scans go through `ops/cuda/sgm.axis_scan` (the B4
     kernel on a CUDA tensor, its plain twin with the kernel grouping on a
@@ -388,21 +381,25 @@ def _sgm_aggregate(vol: torch.Tensor, p1: float, p2: float, n_paths: int,
     min_d: plane k of `vol` holds disparity k + min_d."""
     if n_paths not in (4, 8):
         raise ValueError(f"sgm_paths must be 4 or 8, got {n_paths}")
+    from ..ops.sgm import family_sum
     if use_kernels:
         from ..ops.cuda.sgm import axis_scan as scan
     else:
         scan = _axis_scan
 
     vh = vol.permute(2, 1, 0).contiguous()       # (W, H, D): scan over x
-    agg = scan(vh, (0,), p1, p2, carry_bf16=carry_bf16, entry="x",
-               min_d=min_d).permute(2, 1, 0)
+    x = scan(vh, (0,), p1, p2, carry_bf16=carry_bf16, entry="x",
+             min_d=min_d)
     vv = vol.permute(1, 2, 0).contiguous()       # (H, W, D): scan over y
-    # (1,1)/(-1,1): previous pixel one column left -> roll +1;
-    # (1,-1)/(-1,-1): one column right -> roll -1
-    v_rolls = (0,) if n_paths == 4 else (0, 1, -1)
-    v_sum = scan(vv, v_rolls, p1, p2, carry_bf16=carry_bf16, entry="y",
-                 min_d=min_d)
-    return agg + v_sum.permute(2, 0, 1)
+    y = scan(vv, _v_rolls(n_paths), p1, p2, carry_bf16=carry_bf16,
+             entry="y", min_d=min_d)
+    return family_sum(x, y)
+
+
+def _v_rolls(n_paths: int) -> tuple:
+    """The y family's rolls: (1,1)/(-1,1), previous pixel one column left
+    -> roll +1; (1,-1)/(-1,-1), one column right -> roll -1."""
+    return (0,) if n_paths == 4 else (0, 1, -1)
 
 
 def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
@@ -413,27 +410,28 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
     and gates of `_wta_and_gates`.
 
     With sgm_pallas, census cost and sgm_fused_census the aggregation is
-    `census_aggregate`, and the cost volume never materializes: for 0 < D'
-    < 128 B6 + B5 on a CUDA tensor, in one phase; for 128 < D' <= 1024
-    B4's line kernel reading its cost from the census images, in the
-    materialized route's two phases (`stereo_volume` holds the census
-    images alone).  Otherwise (D' == 128 too) the volume is built and
-    `_sgm_aggregate` scans it (B4 on a CUDA tensor with sgm_pallas)."""
+    `census_aggregate` for every D' the kernels route
+    (`ops/cuda/sgm.plane_route`), and the cost volume never materializes:
+    B6 + B5 on a CUDA tensor ("warp") in one phase, or B4's line kernel
+    reading its cost from the census images ("lines") in the materialized
+    route's two phases (`stereo_volume` holds the census images alone).
+    Otherwise the volume is built and `_sgm_aggregate` scans it (B4 on a
+    CUDA tensor with sgm_pallas)."""
+    from ..ops.cuda.sgm import census_aggregate, plane_route
     n_d = cfg.max_disparity - cfg.min_disparity
     fused = cfg.sgm_pallas and cfg.cost == "census" and cfg.sgm_fused_census
+    route = plane_route(n_d) if fused else None
 
     def census_agg(cl, cr):
-        from ..ops.cuda.sgm import census_aggregate
-        v_rolls = (0,) if cfg.sgm_paths == 4 else (0, 1, -1)
-        return census_aggregate(cl, cr, v_rolls, cfg.sgm_p1, cfg.sgm_p2,
-                                cfg.min_disparity, n_d,
+        return census_aggregate(cl, cr, _v_rolls(cfg.sgm_paths), cfg.sgm_p1,
+                                cfg.sgm_p2, cfg.min_disparity, n_d,
                                 carry_bf16=cfg.sgm_carry_bf16)
 
-    if fused and 0 < n_d < 128:
+    if route == "warp":
         with timing.phase("stereo_aggregate", left.device):
             agg = census_agg(_census(left, cfg.census_radius),
                              _census(right, cfg.census_radius))
-    elif fused and 128 < n_d <= 1024:
+    elif route == "lines":
         with timing.phase("stereo_volume", left.device):
             cl = _census(left, cfg.census_radius)
             cr = _census(right, cfg.census_radius)
@@ -443,8 +441,7 @@ def _disparity_sgm(left: torch.Tensor, right: torch.Tensor,
         # two phases: the volume's build, then its two permuted copies and
         # both families' scans (B4) with their sum
         with timing.phase("stereo_volume", left.device):
-            vol = (_cost_volume_scan if cfg.sgm_pallas
-                   else _cost_volume)(left, right, cfg)
+            vol = _cost_volume(left, right, cfg)
         with timing.phase("stereo_scan", left.device):
             agg = _sgm_aggregate(vol, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_paths,
                                  cfg.sgm_pallas,
@@ -672,8 +669,8 @@ def _wta_and_gates(left: torch.Tensor, agg: torch.Tensor, cfg: StereoConfig,
 
     if cfg.wta_streaming:
         # the WTA kernel on a CUDA tensor, `_wta_scan` on a CPU tensor; the
-        # kernel takes a contiguous volume, which the sum of two permuted
-        # families (`_sgm_aggregate`, B4's census route) need not be
+        # kernel takes a contiguous volume, which the strided sum of two
+        # families (`ops/sgm.family_sum`) is not
         from ..ops.cuda.wta import wta_scan
         idx, best, cm, cp, second, bestR_d, prior3 = wta_scan(
             agg.contiguous(), cfg.min_disparity, cfg.subpixel,

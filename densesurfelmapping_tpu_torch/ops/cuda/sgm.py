@@ -1,10 +1,11 @@
 """Wrappers of the SGM CUDA kernels (`csrc/sgm.cu`), the counterpart of the
 JAX package's `ops/pallas/sgm.py`.
 
-Each wrapper has the signature of its plain twin in `ops/sgm.py`.  On a CPU
-tensor it runs that twin; on a CUDA tensor it checks the inputs, launches
-the kernels on the current stream and raises if a launch failed; it never
-falls back.  `LAUNCHES` counts the calls of each kernel entry:
+Each wrapper has the signature of its plain twin in `ops/sgm.py` and keeps
+the contract of `kernel.py`: on a CPU tensor it runs that twin; on a CUDA
+tensor it checks the inputs, launches the kernels on the current stream and
+raises if a launch failed; it never falls back.  `LAUNCHES` counts the calls
+of each kernel entry:
 
 * sgm_axis_scan (B4): the scan of a materialized volume; for D <= 128 the
   warp step of B5/B6 (a line per warp pair for the roll set (0), B5's
@@ -21,6 +22,10 @@ falls back.  `LAUNCHES` counts the calls of each kernel entry:
   call, one count: two launches); `census_aggregate` makes two calls, the
   x family and the y family, and no (n_d, H, W) volume is built.
 
+`plane_route` is the one place that bounds these routes by the number of
+planes; the matcher (`models/stereo.py`) asks it which route a census
+aggregate takes.
+
 Stream axis: every wrapper also takes operands with a leading (B,) axis,
 the B streams of the stereo fleet's round, and launches each kernel ONCE
 for all of them (a launch adds one to its count however many streams it
@@ -30,11 +35,9 @@ stream on grid y; B5 and B4's band kernel, cooperative launches of one
 block per SM, keep their grid and walk the streams in each block; B4's
 wide route (128 < D <= 1024), on a volume or on census images, takes the
 stream on its line kernel's grid z and covers every stream in one combine
-pass.  Inside a `torch.func.vmap` of the stereo step
+pass.  A call under a `torch.func.vmap` of the stereo step
 (`parallel/multistream.py`; a mesh cell's streams in
-`parallel/sharding.py`) a CUDA call reaches the batched launch through the
-`vmap` rule of an autograd.Function (`_vmappable`); on a CPU tensor the
-plain twins run under the vmap.
+`parallel/sharding.py`) reaches the batched launch too (`kernel.dispatch`).
 
 The launch geometry comes from `axis_plan`, `census_x_plan` and
 `census_y_plan`, plain Python that the CPU tests check.
@@ -49,21 +52,20 @@ from typing import NamedTuple
 import torch
 
 from .. import sgm as plain
-from . import build
-from .slic import _batch_operands, _check, _check_streams, _in_vmap
-
-LAUNCHES = {"sgm_axis_scan": 0, "sgm_census_y": 0, "sgm_census_x": 0,
-            "sgm_census_lines": 0}
+from . import kernel
+from .kernel import check, check_streams
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_LIB = kernel.Library("sgm", {
     "sgm_axis_lines": [_P] * 3 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_census_lines": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_axis_warp": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 8 + [_P],
     "sgm_census_x": [_P] * 4 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
     "sgm_census_y": [_P] * 5 + [_I] * 8 + [_F, _F] + [_I] * 7 + [_P],
     "sgm_census_y_occupancy": [_I] * 6 + [_P],
-}
+}, ("sgm_axis_scan", "sgm_census_y", "sgm_census_x", "sgm_census_lines"))
+LAUNCHES = _LIB.launches
+reset_launch_counts = _LIB.reset_launch_counts
 MAX_SMEM = 232448         # shared memory one block may opt into (H100)
 H100_SMS = 132            # streaming multiprocessors of an H100 SXM
 _CENSUS_ROWS = 8          # B5: census rows per cp.async chunk
@@ -72,21 +74,18 @@ _MAX_Y_WARPS = 20         # B4/B5 band blocks: __launch_bounds__(640)
 _LINE_RING = 8            # B4 line kernel: staged rows a warp (kLRing)
 _BAND_RING = 4            # B4 band kernel: staged volume rows (kVRing)
 _ENTRY = {None: 0, "x": 1, "y": 2}
+WARP_PLANES = 128         # B5, B6 and B4's warp step: 4 planes a lane
+MAX_PLANES = 1024         # B4's line kernel: one plane a thread
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    return build.load("sgm", _SIGNATURES)
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+def plane_route(n_d: int):
+    """The kernels' route for n_d disparity planes: "warp" up to
+    WARP_PLANES (B6 + B5 on census images, B4's warp step on a volume),
+    "lines" up to MAX_PLANES (B4's line kernel and combine pass, on census
+    images or a volume), None for a count no kernel takes."""
+    if 1 <= n_d <= WARP_PLANES:
+        return "warp"
+    return "lines" if WARP_PLANES < n_d <= MAX_PLANES else None
 
 
 def _rolls(rolls) -> list:
@@ -154,7 +153,7 @@ def _band_row_bytes(ncols: int, n_d: int) -> int:
 def _check_steps(streams: int, steps: int) -> None:
     """The streams' global rows (stream s, step t -> s steps + t) and their
     halo tags (one more) must fit the kernels' 32-bit counts."""
-    _check_streams(streams)
+    check_streams(streams)
     if streams * steps >= 2 ** 31:
         raise ValueError(f"{streams} streams of {steps} steps overflow the "
                          f"32-bit halo tags")
@@ -165,13 +164,14 @@ def axis_plan(L: int, R: int, D: int, rolls,
     """B4's route and geometry for `streams` volumes in one launch; raises
     for shapes the kernels do not take and, for D <= 128, for a roll set
     other than CENSUS_Y_ROLLS."""
-    if L < 1 or R < 1 or not 1 <= D <= 1024:
+    route = plane_route(D)
+    if L < 1 or R < 1 or route is None:
         raise ValueError(f"axis_scan: bad volume shape ({L}, {R}, {D}): "
-                         f"1 <= D <= 1024")
+                         f"1 <= D <= {MAX_PLANES}")
     _check_steps(streams, L)
     r = _rolls(rolls)
     g = len(rolls)
-    if D > 128:
+    if route == "lines":
         threads = 32 * math.ceil(D / 32)
         return AxisPlan(route="lines", g=g, blocks=(R + L - 1) * 2 * g,
                         threads=threads, smem=4 * (2 * threads + 64),
@@ -198,63 +198,26 @@ def axis_plan(L: int, R: int, D: int, rolls,
                     halo_bytes=_halo_bytes(nbands, 3), **common)
 
 
-def _plain_over_streams(fn, n_tensors: int, *args):
-    """The plain twin `fn` over the leading stream axis of its first
-    `n_tensors` arguments (CPU tensors with an explicit (B,) axis)."""
-    rest = args[n_tensors:]
-    return torch.func.vmap(lambda *ts: fn(*ts, *rest))(*args[:n_tensors])
-
-
-def _vmappable(launch, n_tensors: int):
-    """An autograd.Function around `launch(*tensors, *options)` whose vmap
-    rule makes ONE batched launch for every stream: under torch.func.vmap
-    the stereo step of one frame reaches the kernels' stream axis.  An
-    operand that vmap does not batch is repeated for each stream."""
-
-    class Launch(torch.autograd.Function):
-        @staticmethod
-        def forward(*args):
-            return launch(*args)
-
-        @staticmethod
-        def setup_context(ctx, inputs, output):
-            pass
-
-        @staticmethod
-        def vmap(info, in_dims, *args):
-            ts = _batch_operands(info.batch_size, in_dims[:n_tensors],
-                                 args[:n_tensors])
-            return launch(*ts, *args[n_tensors:]), 0
-
-    return Launch
-
-
 def _launch_axis_scan(v, rolls, p1, p2, carry_bf16, entry, min_d):
-    if v.dim() not in (3, 4):
-        raise ValueError(f"v must be (L, R, D) or (B, L, R, D), got "
-                         f"{tuple(v.shape)}")
     if entry not in _ENTRY:
         raise ValueError(f"entry must be None, 'x' or 'y', got {entry!r}")
-    lead = tuple(v.shape[:-3])
-    nb = lead[0] if lead else 1
+    lead, nb = kernel.lead("v", v, "L, R, D")
     L, R, D = v.shape[-3:]
     dev = v.device
-    ptr = _check("v", v, torch.bfloat16, lead + (L, R, D), dev)
+    ptr = check("v", v, torch.bfloat16, lead + (L, R, D), dev)
     plan = axis_plan(L, R, D, rolls, _sms(dev), nb)
     r0, r1, r2 = _rolls(rolls)
     out = torch.empty(lead + (L, R, D), dtype=torch.float32, device=dev)
     args = (float(p1), float(p2), int(bool(carry_bf16)), _ENTRY[entry],
             int(min_d))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if plan.route == "lines":
         # one launch of the line kernel (grid z = stream) and one of the
         # combine pass for all the streams, each stream on its own slabs
         scratch = torch.empty(plan.scratch_shape, dtype=torch.float32,
                               device=dev)
-        err = _lib().sgm_axis_lines(
-            ptr, scratch.data_ptr(), out.data_ptr(), nb, L, R, D, plan.g,
-            r0, r1, r2, *args, stream)
-        _launched("sgm_axis_scan", err)
+        _LIB.launch("sgm_axis_lines", ptr, scratch.data_ptr(),
+                    out.data_ptr(), nb, L, R, D, plan.g, r0, r1, r2, *args,
+                    kernel.stream(dev), count="sgm_axis_scan")
         return out
     if ptr % 16:
         raise ValueError("axis_scan stages 16-byte chunks of the "
@@ -262,16 +225,12 @@ def _launch_axis_scan(v, rolls, p1, p2, carry_bf16, entry, min_d):
     slab = torch.empty((nb,) + plan.slab_shape, dtype=torch.bfloat16,
                        device=dev)
     halo = torch.empty(plan.halo_bytes, dtype=torch.uint8, device=dev)
-    err = _lib().sgm_axis_warp(
-        ptr, out.data_ptr(), slab.data_ptr(),
-        halo.data_ptr() if plan.halo_bytes else None, nb, L, R, D, plan.g,
-        r0, r1, r2, *args, plan.nbands, plan.ncols, plan.cpw,
-        plan.threads, plan.smem, stream)
-    _launched("sgm_axis_scan", err)
+    _LIB.launch("sgm_axis_warp", ptr, out.data_ptr(), slab.data_ptr(),
+                halo.data_ptr() if plan.halo_bytes else None, nb, L, R, D,
+                plan.g, r0, r1, r2, *args, plan.nbands, plan.ncols, plan.cpw,
+                plan.threads, plan.smem, kernel.stream(dev),
+                count="sgm_axis_scan")
     return out
-
-
-_AxisScan = _vmappable(_launch_axis_scan, 1)
 
 
 def axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
@@ -282,37 +241,22 @@ def axis_scan(v: torch.Tensor, rolls, p1: float, p2: float,
     call under torch.func.vmap, in one launch for the B streams.  Plain
     twin: `ops/sgm.axis_scan`.  On a CUDA tensor D <= 128 takes the roll
     sets (0,) and (0, 1, -1) only (`axis_plan`)."""
-    args = (rolls, p1, p2, carry_bf16, entry, min_d)
-    if v.device.type == "cpu":
-        if v.dim() == 4:
-            return _plain_over_streams(plain.axis_scan, 1, v, *args)
-        return plain.axis_scan(v, *args)
-    if v.device.type != "cuda":
-        raise ValueError(f"the SGM kernels run on CUDA tensors, got "
-                         f"{v.device}")
-    if _in_vmap(v):
-        return _AxisScan.apply(v, *args)
-    return _launch_axis_scan(v, *args)
+    return kernel.dispatch(plain.axis_scan, _launch_axis_scan, 3, v, rolls,
+                           p1, p2, carry_bf16, entry, min_d)
 
 
-def _census_args(census_l, census_r, min_d, n_d, max_d=128):
-    """(lead, H, W, the census pointers, the current stream): lead is ()
-    for one stream's (H, W) images, (B,) for B streams' (B, H, W)."""
-    dev = census_l.device
-    if dev.type != "cuda":
-        raise ValueError(f"the SGM kernels run on CUDA tensors, got {dev}")
+def _census_args(census_l, census_r, min_d, n_d, max_d=WARP_PLANES):
+    """(lead, streams, H, W, the census pointers): lead is () for one
+    stream's (H, W) images, (B,) for B streams' (B, H, W)."""
     if not 1 <= n_d <= max_d or min_d < 0:
         raise ValueError(f"census kernels take 1 <= n_d <= {max_d} and "
                          f"min_d >= 0, got n_d={n_d}, min_d={min_d}")
-    if census_l.dim() not in (2, 3):
-        raise ValueError(f"census_l must be (H, W) or (B, H, W), got "
-                         f"{tuple(census_l.shape)}")
-    lead = tuple(census_l.shape[:-2])
+    lead, nb = kernel.lead("census_l", census_l, "H, W")
     H, W = census_l.shape[-2:]
-    return (lead, H, W,
-            _check("census_l", census_l, torch.int32, lead + (H, W), dev),
-            _check("census_r", census_r, torch.int32, lead + (H, W), dev),
-            torch.cuda.current_stream(dev).cuda_stream)
+    dev = census_l.device
+    return (lead, nb, H, W,
+            check("census_l", census_l, torch.int32, lead + (H, W), dev),
+            check("census_r", census_r, torch.int32, lead + (H, W), dev))
 
 
 class CensusXPlan(NamedTuple):
@@ -381,7 +325,7 @@ class CensusYPlan(NamedTuple):
 
 def census_x_plan(H: int, W: int, n_d: int,
                   streams: int = 1) -> CensusXPlan:
-    _check_streams(streams)
+    check_streams(streams)
     # a f32 out tile of 32 x 128 and a ring of 16 x 32 uint2 per warp, the
     # row's census
     smem = 2 * 4 * 32 * 128 + 2 * 8 * 16 * 32 + 4 * (4 * math.ceil(W / 4) + W)
@@ -417,7 +361,7 @@ def census_y_plan(H: int, W: int, n_d: int, g: int,
     `streams`: the blocks walk the streams (giving each stream sms / B SMs
     instead would widen the bands past what a block holds, e.g. 254,592 B
     at KITTI width with sms = 66)."""
-    if g not in (1, 3) or not 1 <= n_d <= 128 or H < 1 or W < 1:
+    if g not in (1, 3) or plane_route(n_d) != "warp" or H < 1 or W < 1:
         raise ValueError(f"census_y: bad shape H={H} W={W} n_d={n_d} g={g}")
     _check_steps(streams, H)
     ncols, nbands, cpw, threads = _bands(W, sms)
@@ -450,7 +394,7 @@ def census_y_occupancy(H: int, W: int, n_d: int, g: int,
     sms = _sms(torch.device("cuda"))
     plan = census_y_plan(H, W, n_d, g, sms)
     n = ctypes.c_int(0)
-    err = _lib().sgm_census_y_occupancy(n_d, g, int(bool(carry_bf16)),
+    err = _LIB.load().sgm_census_y_occupancy(n_d, g, int(bool(carry_bf16)),
                                         plan.cpw, plan.threads, plan.smem,
                                         ctypes.addressof(n))
     if err != 0:
@@ -460,41 +404,35 @@ def census_y_occupancy(H: int, W: int, n_d: int, g: int,
 
 
 def _launch_census_x(census_l, census_r, p1, p2, min_d, n_d, carry_bf16):
-    lead, H, W, cl, cr, stream = _census_args(census_l, census_r, min_d,
-                                              n_d)
-    nb = lead[0] if lead else 1
+    lead, nb, H, W, cl, cr = _census_args(census_l, census_r, min_d, n_d)
     plan = census_x_plan(H, W, n_d, nb)
     dev = census_l.device
     out = torch.empty(lead + (n_d, H, W), dtype=torch.float32, device=dev)
     slab = torch.empty((nb,) + plan.slab_shape, dtype=torch.bfloat16,
                        device=dev)
-    err = _lib().sgm_census_x(cl, cr, out.data_ptr(), slab.data_ptr(), nb,
-                              H, W, n_d, float(p1), float(p2), int(min_d),
-                              int(bool(carry_bf16)), plan.smem, stream)
-    _launched("sgm_census_x", err)
+    _LIB.launch("sgm_census_x", cl, cr, out.data_ptr(), slab.data_ptr(), nb,
+                H, W, n_d, float(p1), float(p2), int(min_d),
+                int(bool(carry_bf16)), plan.smem, kernel.stream(dev))
     return out
 
 
 def _launch_census_y(census_l, census_r, out, v_rolls, p1, p2, min_d,
                      carry_bf16):
     n_d = out.shape[-3]
-    lead, H, W, cl, cr, stream = _census_args(census_l, census_r, min_d,
-                                              n_d)
-    nb = lead[0] if lead else 1
+    lead, nb, H, W, cl, cr = _census_args(census_l, census_r, min_d, n_d)
     dev = census_l.device
-    optr = _check("out", out, torch.float32, lead + (n_d, H, W), dev)
+    optr = check("out", out, torch.float32, lead + (n_d, H, W), dev)
     g = len(v_rolls)
     r0, r1, r2 = census_y_rolls(v_rolls)
     plan = census_y_plan(H, W, n_d, g, _sms(dev), nb)
     slab = torch.empty((nb,) + plan.slab_shape, dtype=torch.bfloat16,
                        device=dev)
     halo = torch.empty(plan.halo_bytes, dtype=torch.uint8, device=dev)
-    err = _lib().sgm_census_y(cl, cr, optr, slab.data_ptr(), halo.data_ptr(),
-                              nb, H, W, n_d, g, r0, r1, r2,
-                              float(p1), float(p2), int(min_d),
-                              int(bool(carry_bf16)), plan.nbands, plan.ncols,
-                              plan.cpw, plan.threads, plan.smem, stream)
-    _launched("sgm_census_y", err)
+    _LIB.launch("sgm_census_y", cl, cr, optr, slab.data_ptr(),
+                halo.data_ptr(), nb, H, W, n_d, g, r0, r1, r2, float(p1),
+                float(p2), int(min_d), int(bool(carry_bf16)), plan.nbands,
+                plan.ncols, plan.cpw, plan.threads, plan.smem,
+                kernel.stream(dev))
     return out
 
 
@@ -504,76 +442,42 @@ def _census_lines_family(census_l, census_r, rolls, entry, p1, p2, min_d,
     `sgm_census_lines` call on B4's wide-route geometry (`axis_plan` over
     the family's (L, R)): entry "x" -> f32 lead + (W, H, n_d), rolls (0);
     entry "y" -> lead + (H, W, n_d), the matcher's rolls.  Its scratch is
-    freed on return."""
-    lead, H, W, cl, cr, stream = _census_args(census_l, census_r, min_d, n_d,
-                                              max_d=1024)
+    freed on return.  Plain twin: `ops/sgm.census_family`."""
+    lead, nb, H, W, cl, cr = _census_args(census_l, census_r, min_d, n_d,
+                                          max_d=MAX_PLANES)
     dev = census_l.device
     L, R = (W, H) if entry == "x" else (H, W)
-    fp = axis_plan(L, R, n_d, rolls, _sms(dev), lead[0] if lead else 1)
+    fp = axis_plan(L, R, n_d, rolls, _sms(dev), nb)
     r0, r1, r2 = _rolls(rolls)
     scratch = torch.empty(fp.scratch_shape, dtype=torch.float32, device=dev)
     out = torch.empty(lead + (L, R, n_d), dtype=torch.float32, device=dev)
-    err = _lib().sgm_census_lines(
-        cl, cr, scratch.data_ptr(), out.data_ptr(), fp.streams, H, W, n_d,
-        fp.g, r0, r1, r2, float(p1), float(p2), int(bool(carry_bf16)),
-        _ENTRY[entry], int(min_d), stream)
-    _launched("sgm_census_lines", err)
+    _LIB.launch("sgm_census_lines", cl, cr, scratch.data_ptr(),
+                out.data_ptr(), fp.streams, H, W, n_d, fp.g, r0, r1, r2,
+                float(p1), float(p2), int(bool(carry_bf16)), _ENTRY[entry],
+                int(min_d), kernel.stream(dev))
     return out
-
-
-def _launch_census_lines(census_l, census_r, v_rolls, p1, p2, min_d, n_d,
-                         carry_bf16):
-    """The census aggregate above 128 planes: the x family + the y family,
-    summed as `models/stereo._sgm_aggregate` sums them."""
-    opts = (p1, p2, min_d, n_d, carry_bf16)
-    x = _census_lines_family(census_l, census_r, (0,), "x", *opts)
-    y = _census_lines_family(census_l, census_r, v_rolls, "y", *opts)
-    if x.dim() == 4:
-        return x.permute(0, 3, 2, 1) + y.permute(0, 3, 1, 2)
-    return x.permute(2, 1, 0) + y.permute(2, 0, 1)
 
 
 def _launch_census_aggregate(census_l, census_r, v_rolls, p1, p2, min_d,
                              n_d, carry_bf16):
-    # the route by the number of planes: B6 + B5 hold 4 planes a lane (n_d
-    # <= 128), B4's line kernel one a thread (n_d <= 1024)
-    if n_d > 128:
-        return _launch_census_lines(census_l, census_r, v_rolls, p1, p2,
-                                    min_d, n_d, carry_bf16)
-    out = _launch_census_x(census_l, census_r, p1, p2, min_d, n_d,
-                           carry_bf16)
-    return _launch_census_y(census_l, census_r, out, v_rolls, p1, p2, min_d,
-                            carry_bf16)
+    if plane_route(n_d) == "warp":
+        out = _launch_census_x(census_l, census_r, p1, p2, min_d, n_d,
+                               carry_bf16)
+        return _launch_census_y(census_l, census_r, out, v_rolls, p1, p2,
+                                min_d, carry_bf16)
+    # the line kernel, one call a family (raising past MAX_PLANES)
+    opts = (p1, p2, min_d, n_d, carry_bf16)
+    return plain.family_sum(
+        _census_lines_family(census_l, census_r, (0,), "x", *opts),
+        _census_lines_family(census_l, census_r, v_rolls, "y", *opts))
 
 
-class _CensusY(torch.autograd.Function):
-    """census_y under torch.func.vmap: one batched B5 launch, adding into
-    the batched `out` in place as the single-stream call does."""
-
-    @staticmethod
-    def forward(census_l, census_r, out, *options):
-        return _launch_census_y(census_l, census_r, out, *options)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, census_l, census_r, out, *options):
-        if in_dims[2] is None:
-            raise ValueError("census_y adds into out in place: under vmap "
-                             "out must carry the stream axis")
-        cl, cr = _batch_operands(info.batch_size, in_dims[:2],
-                                 (census_l, census_r))
-        o = out.movedim(in_dims[2], 0)
-        if o.is_contiguous():
-            return _launch_census_y(cl, cr, o, *options), 0
-        return o.copy_(_launch_census_y(cl, cr, o.contiguous(),
-                                        *options)), 0
-
-
-_CensusX = _vmappable(_launch_census_x, 2)
-_CensusAggregate = _vmappable(_launch_census_aggregate, 2)
+def _census_y_twin(census_l, census_r, out, v_rolls, p1, p2, min_d,
+                   carry_bf16=False):
+    """census_y's plain twin: `ops/sgm.census_y_family` added into out."""
+    return out.add_(plain.census_y_family(census_l, census_r, v_rolls, p1,
+                                          p2, min_d, out.shape[-3],
+                                          carry_bf16))
 
 
 def census_x(census_l: torch.Tensor, census_r: torch.Tensor, p1: float,
@@ -582,14 +486,9 @@ def census_x(census_l: torch.Tensor, census_r: torch.Tensor, p1: float,
     """B6: horizontal family of the census aggregate -> f32 (n_d, H, W);
     (B, H, W) census images, or a call under torch.func.vmap, in one launch
     -> (B, n_d, H, W).  Plain twin: `ops/sgm.census_x_family`."""
-    args = (census_l, census_r, p1, p2, min_d, n_d, carry_bf16)
-    if census_l.device.type == "cpu":
-        if census_l.dim() == 3:
-            return _plain_over_streams(plain.census_x_family, 2, *args)
-        return plain.census_x_family(*args)
-    if _in_vmap(census_l, census_r):
-        return _CensusX.apply(*args)
-    return _launch_census_x(*args)
+    return kernel.dispatch(plain.census_x_family, _launch_census_x, 2,
+                           census_l, census_r, p1, p2, min_d, n_d,
+                           carry_bf16)
 
 
 def census_y(census_l: torch.Tensor, census_r: torch.Tensor,
@@ -597,19 +496,12 @@ def census_y(census_l: torch.Tensor, census_r: torch.Tensor,
              carry_bf16: bool = False) -> torch.Tensor:
     """B5: adds the vertical (+ diagonal) family of the census aggregate to
     `out` (f32 (n_d, H, W), in place) and returns it; (B, H, W) census
-    images and out (B, n_d, H, W), or a call under torch.func.vmap, in one
-    launch.  Plain twin: `out + ops/sgm.census_y_family`."""
-    if census_l.device.type == "cpu":
-        n_d = out.shape[-3]
-        opts = (v_rolls, p1, p2, min_d, n_d, carry_bf16)
-        if census_l.dim() == 3:
-            return out.add_(_plain_over_streams(
-                plain.census_y_family, 2, census_l, census_r, *opts))
-        return out.add_(plain.census_y_family(census_l, census_r, *opts))
-    args = (census_l, census_r, out, v_rolls, p1, p2, min_d, carry_bf16)
-    if _in_vmap(census_l, census_r, out):
-        return _CensusY.apply(*args)
-    return _launch_census_y(*args)
+    images and out (B, n_d, H, W), or a call under torch.func.vmap (out
+    batched too), in one launch.  Plain twin: `out +
+    ops/sgm.census_y_family`."""
+    return kernel.dispatch(_census_y_twin, _launch_census_y, 2, census_l,
+                           census_r, out, v_rolls, p1, p2, min_d, carry_bf16,
+                           inplace=2)
 
 
 def census_aggregate(census_l: torch.Tensor, census_r: torch.Tensor,
@@ -617,18 +509,12 @@ def census_aggregate(census_l: torch.Tensor, census_r: torch.Tensor,
                      carry_bf16: bool = False) -> torch.Tensor:
     """4/8-path SGM aggregation straight from (H, W) int32 census images
     -> f32 (n_d, H, W), x family + y family; the cost volume never
-    materializes.  On a CUDA tensor 1 <= n_d <= 1024: B6 +
-    B5 up to 128 planes, above that B4's line kernel and combine pass once
-    per family with the cost computed from the census images (bitwise B4
-    on the census volume).  (B, H, W) images, or a call under
-    torch.func.vmap (the stereo fleet's round), run one launch of each
-    kernel for the B streams -> (B, n_d, H, W).  Plain twin:
-    `ops/sgm.census_aggregate`."""
-    args = (census_l, census_r, v_rolls, p1, p2, min_d, n_d, carry_bf16)
-    if census_l.device.type == "cpu":
-        if census_l.dim() == 3:
-            return _plain_over_streams(plain.census_aggregate, 2, *args)
-        return plain.census_aggregate(*args)
-    if _in_vmap(census_l, census_r):
-        return _CensusAggregate.apply(*args)
-    return _launch_census_aggregate(*args)
+    materializes.  On a CUDA tensor the route is `plane_route(n_d)`: B6 +
+    B5 ("warp"), or B4's line kernel and combine pass once per family with
+    the cost computed from the census images ("lines", bitwise B4 on the
+    census volume).  (B, H, W) images, or a call under torch.func.vmap (the
+    stereo fleet's round), run one launch of each kernel for the B streams
+    -> (B, n_d, H, W).  Plain twin: `ops/sgm.census_aggregate`."""
+    return kernel.dispatch(plain.census_aggregate, _launch_census_aggregate,
+                           2, census_l, census_r, v_rolls, p1, p2, min_d,
+                           n_d, carry_bf16)

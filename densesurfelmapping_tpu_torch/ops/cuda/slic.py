@@ -1,20 +1,18 @@
 """Wrappers of the SLIC CUDA kernels (`csrc/slic.cu`), the counterpart of the
 JAX package's `ops/pallas/slic.py`.
 
-Each wrapper has the signature of its plain twin in `ops/superpixel.py`.  On
-a CPU tensor it runs that twin; on a CUDA tensor it checks the inputs,
-launches the kernel on the current stream and raises if the launch failed;
-it never falls back.  `LAUNCHES` counts the kernel launches per kernel.
+Each wrapper has the signature of its plain twin in `ops/superpixel.py`
+and keeps the contract of `kernel.py`: on a CPU tensor it runs that twin;
+on a CUDA tensor it checks the inputs, launches the kernel on the current
+stream and raises if the launch failed; it never falls back.  `LAUNCHES`
+counts the kernel launches per kernel.
 
 Stream axis: every wrapper also takes operands with a leading (B,) axis,
 (B, H, W) pixel planes and (B, R, C) seed planes, the B streams of a
 multi-session fleet, and launches its kernel ONCE for all of them (the
 kernel's grid z is the stream), where the JAX package vmaps the TPU
-kernels.  On a CPU tensor the plain twin runs under `torch.func.vmap`.
-Inside a `torch.func.vmap` of the fuse step (`parallel/multistream.py`) a
-CUDA call reaches the batched launch through the `vmap` rule of an
-autograd.Function, so the single-frame step batches over streams without a
-loop.  A single (H, W) call launches as it always did.
+kernels; a call under `torch.func.vmap` of the fuse step
+(`parallel/multistream.py`) reaches that launch too (`kernel.dispatch`).
 
 The launch geometry of the kernels comes from `assign_plan`,
 `centroid_plan` and `huber_plan`, plain Python that the CPU tests check
@@ -24,7 +22,6 @@ The launch geometry of the kernels comes from `assign_plan`,
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
@@ -32,16 +29,17 @@ import torch
 
 from ...config import SurfelMapConfig
 from .. import superpixel as plain
-from . import build
-
-LAUNCHES = {"slic_assign": 0, "slic_centroid": 0, "slic_huber": 0}
+from . import kernel
+from .kernel import check, check_streams
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_LIB = kernel.Library("slic", {
     "slic_assign": [_P] * 10 + [_I] * 11 + [_P],
     "slic_centroid": [_P] * 4 + [_I] * 11 + [_P],
     "slic_huber": [_P] * 5 + [_I] * 11 + [_F, _P],
-}
+}, ("slic_assign", "slic_centroid", "slic_huber"))
+LAUNCHES = _LIB.launches
+reset_launch_counts = _LIB.reset_launch_counts
 MAX_SMEM = 232448         # shared memory one block may opt into (H100)
 STRIP_SEEDS = 8           # B2/B3: seeds (warps) of a block, csrc kStripSeeds
 ASSIGN_TILE = (32, 32)    # B1: pixel rows and columns of a block's tile
@@ -99,15 +97,10 @@ def _cells_spanned(n: int, tile: int, sp: int) -> int:
     return max((t + tile - 1) // sp - t // sp + 1 for t in range(0, n, tile))
 
 
-def _check_streams(nb: int) -> None:
-    if not 1 <= nb <= 65535:
-        raise ValueError(f"{nb} streams outside the grid's z range 1..65535")
-
-
 def assign_plan(h: int, w: int, sp: int, nb: int = 1) -> AssignPlan:
     """B1 over nb padded (h, w) frames at seed pitch sp."""
     _check_sp(sp)
-    _check_streams(nb)
+    check_streams(nb)
     ty, tx = ASSIGN_TILE
     staged = (_cells_spanned(h, ty, sp) + 2, _cells_spanned(w, tx, sp) + 2)
     return AssignPlan(
@@ -121,7 +114,7 @@ def assign_plan(h: int, w: int, sp: int, nb: int = 1) -> AssignPlan:
 def _strip_plan(rows: int, cols: int, sp: int, planes: int,
                 listed: bool, nb: int) -> StripPlan:
     _check_sp(sp)
-    _check_streams(nb)
+    check_streams(nb)
     per_lane = math.ceil(4 * sp * sp / 32)
     off = -(sp // 2) % 4          # bx * seeds * sp is a multiple of 4
     chunks = math.ceil((off + (STRIP_SEEDS + 1) * sp) / 4)
@@ -152,30 +145,6 @@ def stream_bases(ptr: int, nb: int, plane_bytes: int) -> list:
     return [ptr + z * plane_bytes for z in range(nb)]
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    return build.load("slic", _SIGNATURES)
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> int:
-    """t's data pointer, once its device, dtype, shape (a batched call puts
-    the stream count first) and layout are the kernel's."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    return t.data_ptr()
-
-
 def _check_chunks(w: int, bases) -> None:
     """B2/B3 stage 16-byte chunks: the rows of every stream's plane must
     start 16-byte aligned (`bases`: each plane's address, `stream_bases`)."""
@@ -186,148 +155,71 @@ def _check_chunks(w: int, bases) -> None:
                          f"planes (misaligned: {bad[:4]})")
 
 
-def _prepare(config: SurfelMapConfig, device: torch.device):
-    if device.type != "cuda":
-        raise ValueError(f"the SLIC kernels run on CUDA tensors, got {device}")
-    _check_sp(config.sp_size)
-    return _lib(), torch.cuda.current_stream(device).cuda_stream
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
-def _lead(t: torch.Tensor) -> tuple:
-    """() for a single frame, (B,) for the stream axis of a batched call."""
-    lead = tuple(t.shape[:-2])
-    if len(lead) > 1:
-        raise ValueError(f"the SLIC kernels take (H, W) or (B, H, W) "
-                         f"operands, got {tuple(t.shape)}")
-    return lead
-
-
-def _in_vmap(*ts) -> bool:
-    """Some operand is a torch.func.vmap batched tensor."""
-    return any(torch._C._functorch.is_batchedtensor(t) for t in ts)
-
-
-def _plain_batched(fn, config: SurfelMapConfig, *ts):
-    """The plain twin over a leading stream axis (CPU tensors)."""
-    return torch.func.vmap(functools.partial(fn, config))(*ts)
-
-
-def _batch_operands(n: int, in_dims, ts) -> list:
-    """For a vmap rule: every operand with the stream axis first and
-    contiguous; one that vmap does not batch (a constant plane, such as the
-    initial seed grid) is repeated for each of the n streams."""
-    return [(t.expand(n, *t.shape) if d is None else t.movedim(d, 0))
-            .contiguous() for t, d in zip(ts, in_dims)]
-
-
-def _vmappable(launch, n_out: int):
-    """An autograd.Function around `launch(config, *tensors)` whose vmap
-    rule makes ONE batched launch for every stream: under torch.func.vmap
-    the fuse step of one frame reaches the kernels' stream axis."""
-    out_dims = 0 if n_out == 1 else (0,) * n_out
-
-    class Launch(torch.autograd.Function):
-        @staticmethod
-        def forward(config, *ts):
-            return launch(config, *ts)
-
-        @staticmethod
-        def setup_context(ctx, inputs, output):
-            pass
-
-        @staticmethod
-        def vmap(info, in_dims, config, *ts):
-            return launch(config, *_batch_operands(
-                info.batch_size, in_dims[1:], ts)), out_dims
-
-    return Launch
-
-
 def _launch_assign(config: SurfelMapConfig, image, inv_depth, assignment,
                    x, y, mean_intensity, mean_depth, stable):
     dev = image.device
-    lib, stream = _prepare(config, dev)
-    lead = _lead(image)
-    nb = lead[0] if lead else 1
+    lead, nb = kernel.lead("image", image, "H, W")
     hw = lead + (config.padded_height, config.padded_width)
     rc = lead + (config.sp_rows, config.sp_cols)
     f32, i32 = torch.float32, torch.int32
-    ptrs = [_check("image", image, f32, hw, dev),
-            _check("inv_depth", inv_depth, f32, hw, dev),
-            _check("assignment", assignment, i32, hw, dev),
-            _check("x", x, f32, rc, dev), _check("y", y, f32, rc, dev),
-            _check("mean_intensity", mean_intensity, f32, rc, dev),
-            _check("mean_depth", mean_depth, f32, rc, dev),
-            _check("stable", stable, torch.bool, rc, dev)]
+    ptrs = [check("image", image, f32, hw, dev),
+            check("inv_depth", inv_depth, f32, hw, dev),
+            check("assignment", assignment, i32, hw, dev),
+            check("x", x, f32, rc, dev), check("y", y, f32, rc, dev),
+            check("mean_intensity", mean_intensity, f32, rc, dev),
+            check("mean_depth", mean_depth, f32, rc, dev),
+            check("stable", stable, torch.bool, rc, dev)]
     plan = assign_plan(*hw[-2:], config.sp_size, nb)
     new_assignment = torch.empty(hw, dtype=i32, device=dev)
     claimed = torch.empty(rc, dtype=torch.bool, device=dev)
-    err = lib.slic_assign(*ptrs, new_assignment.data_ptr(),
-                          claimed.data_ptr(), nb, *hw[-2:], *rc[-2:],
-                          config.height, config.width, config.sp_size,
-                          *plan.staged, plan.smem, stream)
-    _launched("slic_assign", err)
+    _LIB.launch("slic_assign", *ptrs, new_assignment.data_ptr(),
+                claimed.data_ptr(), nb, *hw[-2:], *rc[-2:], config.height,
+                config.width, config.sp_size, *plan.staged, plan.smem,
+                kernel.stream(dev))
     return new_assignment, claimed
 
 
 def _launch_centroid(config: SurfelMapConfig, image, depth, assignment):
     dev = image.device
-    lib, stream = _prepare(config, dev)
-    lead = _lead(image)
-    nb = lead[0] if lead else 1
+    lead, nb = kernel.lead("image", image, "H, W")
     ph, pw = config.padded_height, config.padded_width
     rows, cols = config.sp_rows, config.sp_cols
     hw = lead + (ph, pw)
-    ptrs = [_check("image", image, torch.float32, hw, dev),
-            _check("depth", depth, torch.float32, hw, dev),
-            _check("assignment", assignment, torch.int32, hw, dev)]
+    ptrs = [check("image", image, torch.float32, hw, dev),
+            check("depth", depth, torch.float32, hw, dev),
+            check("assignment", assignment, torch.int32, hw, dev)]
     _check_chunks(pw, [b for p in ptrs
                        for b in stream_bases(p, nb, 4 * ph * pw)])
     plan = centroid_plan(rows, cols, config.sp_size, nb)
     # (6, B, R, C): each of the six planes comes out contiguous
     out = torch.empty((6,) + lead + (rows, cols), dtype=torch.float32,
                       device=dev)
-    err = lib.slic_centroid(*ptrs, out.data_ptr(), nb, ph, pw, rows, cols,
-                            config.height, config.width, config.sp_size,
-                            plan.chunks, plan.per_lane, plan.smem, stream)
-    _launched("slic_centroid", err)
+    _LIB.launch("slic_centroid", *ptrs, out.data_ptr(), nb, ph, pw, rows,
+                cols, config.height, config.width, config.sp_size,
+                plan.chunks, plan.per_lane, plan.smem, kernel.stream(dev))
     return tuple(out.unbind(0))
 
 
 def _launch_huber(config: SurfelMapConfig, depth, assignment, mean,
                   converged):
     dev = depth.device
-    lib, stream = _prepare(config, dev)
-    lead = _lead(depth)
-    nb = lead[0] if lead else 1
+    lead, nb = kernel.lead("depth", depth, "H, W")
     ph, pw = config.padded_height, config.padded_width
     hw = lead + (ph, pw)
     rc = lead + (config.sp_rows, config.sp_cols)
-    ptrs = [_check("depth", depth, torch.float32, hw, dev),
-            _check("assignment", assignment, torch.int32, hw, dev),
-            _check("mean", mean, torch.float32, rc, dev),
-            _check("converged", converged, torch.bool, rc, dev)]
+    ptrs = [check("depth", depth, torch.float32, hw, dev),
+            check("assignment", assignment, torch.int32, hw, dev),
+            check("mean", mean, torch.float32, rc, dev),
+            check("converged", converged, torch.bool, rc, dev)]
     _check_chunks(pw, [b for p in ptrs[:2]
                        for b in stream_bases(p, nb, 4 * ph * pw)])
     plan = huber_plan(*rc[-2:], config.sp_size, nb)
     out = torch.empty(rc, dtype=torch.float32, device=dev)
-    err = lib.slic_huber(*ptrs, out.data_ptr(), nb, ph, pw, *rc[-2:],
-                         config.height, config.width, config.sp_size,
-                         plan.chunks, plan.per_lane, plan.smem,
-                         float(config.profile.huber_range), stream)
-    _launched("slic_huber", err)
+    _LIB.launch("slic_huber", *ptrs, out.data_ptr(), nb, ph, pw, *rc[-2:],
+                config.height, config.width, config.sp_size, plan.chunks,
+                plan.per_lane, plan.smem, float(config.profile.huber_range),
+                kernel.stream(dev))
     return out
-
-
-_Assign = _vmappable(_launch_assign, 2)
-_Centroid = _vmappable(_launch_centroid, 6)
-_Huber = _vmappable(_launch_huber, 1)
 
 
 def slic_assign(config: SurfelMapConfig, image, inv_depth, assignment,
@@ -337,40 +229,22 @@ def slic_assign(config: SurfelMapConfig, image, inv_depth, assignment,
     call.  Plain twin: `superpixel.assign_sweep`.  The kernel writes the
     bool claims itself (the C entry zeroes them first): two device
     operations per call, the memset and the kernel, however many streams."""
-    args = (image, inv_depth, assignment, x, y, mean_intensity, mean_depth,
-            stable)
-    if image.device.type == "cpu":
-        if image.dim() == 3:
-            return _plain_batched(plain.assign_sweep, config, *args)
-        return plain.assign_sweep(config, *args)
-    if _in_vmap(*args):
-        return _Assign.apply(config, *args)
-    return _launch_assign(config, *args)
+    return kernel.dispatch(plain.assign_sweep, _launch_assign, 2, config,
+                           image, inv_depth, assignment, x, y,
+                           mean_intensity, mean_depth, stable)
 
 
 def slic_centroid(config: SurfelMapConfig, image, depth, assignment):
     """B2: per-seed sums -> six (R, C) f32 planes (n, sum x, sum y,
     sum intensity, n with depth, sum depth), (B, R, C) in a batched call.
     Plain twin: `superpixel.seed_sums`."""
-    args = (image, depth, assignment)
-    if image.device.type == "cpu":
-        if image.dim() == 3:
-            return _plain_batched(plain.seed_sums, config, *args)
-        return plain.seed_sums(config, *args)
-    if _in_vmap(*args):
-        return _Centroid.apply(config, *args)
-    return _launch_centroid(config, *args)
+    return kernel.dispatch(plain.seed_sums, _launch_centroid, 2, config,
+                           image, depth, assignment)
 
 
 def slic_huber(config: SurfelMapConfig, depth, assignment, mean, converged):
     """B3: five Huber-Newton steps of the per-seed mean depth with the
     convergence latch, in one launch -> (R, C) f32 mean ((B, R, C) in a
     batched call).  Plain twin: `superpixel.huber_mean_depth`."""
-    args = (depth, assignment, mean, converged)
-    if depth.device.type == "cpu":
-        if depth.dim() == 3:
-            return _plain_batched(plain.huber_mean_depth, config, *args)
-        return plain.huber_mean_depth(config, *args)
-    if _in_vmap(*args):
-        return _Huber.apply(config, *args)
-    return _launch_huber(config, *args)
+    return kernel.dispatch(plain.huber_mean_depth, _launch_huber, 2, config,
+                           depth, assignment, mean, converged)

@@ -1,19 +1,18 @@
 """Wrapper of the stereo matcher's WTA kernel (`csrc/wta.cu`).
 
 `wta_scan` returns the seven outputs of its plain twin,
-`models/stereo.py::_wta_scan`, bitwise.  On a CPU tensor it runs that twin;
-on a CUDA tensor it checks the inputs, launches `wta_scan_kernel` once on
-the current stream and raises if the launch failed; it never falls back.
-`LAUNCHES` counts the launches.
+`models/stereo.py::_wta_scan`, bitwise, and keeps the contract of
+`kernel.py`: on a CPU tensor it runs that twin; on a CUDA tensor it checks
+the inputs, launches `wta_scan_kernel` once on the current stream and
+raises if the launch failed; it never falls back.  `LAUNCHES` counts the
+launches.
 
 The kernel replaces no TPU kernel: the JAX package runs this WTA as a
 `lax.scan` over chunks of planes, which the twin translated op by op.
 
 Stream axis: a (B, D', H, W) volume runs in one launch (grid z = stream),
-and a call under `torch.func.vmap` (the stereo fleet's round,
-`parallel/multistream.py`; a mesh cell's streams, `parallel/sharding.py`)
-reaches that launch through the `vmap` rule of an autograd.Function.  On a
-CPU tensor the twin runs under the vmap.
+and so does a call under `torch.func.vmap` (the stereo fleet's round,
+`parallel/multistream.py`; a mesh cell's streams, `parallel/sharding.py`).
 """
 
 from __future__ import annotations
@@ -23,50 +22,38 @@ from typing import Optional
 
 import torch
 
-from . import build
-from .slic import _batch_operands, _check, _check_streams, _in_vmap
-
-LAUNCHES = {"wta_scan": 0}
+from . import kernel
+from .kernel import check, check_streams
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"wta_scan": [_P] * 9 + [_I] * 6 + [_P]}
+_LIB = kernel.Library("wta", {"wta_scan": [_P] * 9 + [_I] * 6 + [_P]},
+                      ("wta_scan",))
+LAUNCHES = _LIB.launches
+reset_launch_counts = _LIB.reset_launch_counts
 # planes whose loads a thread issues before their compare chains
 # (csrc/wta.cu takes 1, 4, 8 or 16)
 UNROLL = 8
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    return build.load("wta", _SIGNATURES)
-
-
-def _launch(agg, prior_plane, min_d, subpixel, uniqueness,
-            unroll=UNROLL) -> tuple:
-    """The kernel over a (D', H, W) or (B, D', H, W) f32 volume; returns
-    the outputs it computed, in `_wta_scan`'s order, leaving out cm and cp
-    without subpixel and second without the uniqueness gate; the prior's
-    three costs last, with a prior plane."""
-    if agg.dim() not in (3, 4):
-        raise ValueError(f"agg must be (D, H, W) or (B, D, H, W), got "
-                         f"{tuple(agg.shape)}")
+def _launch_wta_scan(agg, min_d, subpixel, uniqueness, prior_plane=None,
+                     unroll=UNROLL) -> tuple:
+    """The kernel over a (D', H, W) or (B, D', H, W) f32 volume: the
+    outputs of `wta_scan`, computing cm and cp only with subpixel, second
+    only with the uniqueness gate and the prior's three costs only with a
+    prior plane."""
     if min_d < 0:
         raise ValueError(f"min_d must be >= 0, got {min_d}")
-    lead = tuple(agg.shape[:-3])
-    nb = lead[0] if lead else 1
+    lead, nb = kernel.lead("agg", agg, "D, H, W")
     D, H, W = agg.shape[-3:]
-    _check_streams(nb)
+    check_streams(nb)
     if not 1 <= H <= 65535:
         raise ValueError(f"{H} rows outside the grid's y range 1..65535")
     dev = agg.device
-    ptr = _check("agg", agg, torch.float32, lead + (D, H, W), dev)
+    ptr = check("agg", agg, torch.float32, lead + (D, H, W), dev)
     hw = lead + (H, W)
     prior_ptr = None
     if prior_plane is not None:
-        prior_ptr = _check("prior_plane", prior_plane, torch.int32, hw, dev)
+        prior_ptr = check("prior_plane", prior_plane, torch.int32, hw, dev)
 
     def empty(dtype=torch.float32, shape=hw):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -75,42 +62,19 @@ def _launch(agg, prior_plane, min_d, subpixel, uniqueness,
     cm, cp = (empty(), empty()) if subpixel else (None, None)
     second = empty() if uniqueness > 0 else None
     prior3 = empty(shape=(3,) + hw) if prior_plane is not None else None
-    err = _lib().wta_scan(
-        ptr, prior_ptr, *(t.data_ptr() if t is not None else None
-                          for t in (idx, best, cm, cp, second, best_rd,
-                                    prior3)),
-        nb, D, H, W, int(min_d), int(unroll),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wta_scan launch failed with CUDA error {err}")
-    LAUNCHES["wta_scan"] += 1
-    outs = (idx, best, cm, cp, second, best_rd)
-    if prior3 is not None:
-        outs += tuple(prior3)
-    return tuple(t for t in outs if t is not None)
+    _LIB.launch("wta_scan", ptr, prior_ptr,
+                *(t.data_ptr() if t is not None else None
+                  for t in (idx, best, cm, cp, second, best_rd, prior3)),
+                nb, D, H, W, int(min_d), int(unroll), kernel.stream(dev))
+    return (idx, best, cm, cp, second, best_rd,
+            tuple(prior3) if prior3 is not None else None)
 
 
-class _Launch(torch.autograd.Function):
-    """`_launch` under torch.func.vmap: one launch for every stream.  An
-    operand that vmap does not batch is repeated for each stream; a prior
-    plane of None stays None."""
-
-    @staticmethod
-    def forward(agg, prior_plane, *options):
-        return _launch(agg, prior_plane, *options)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, agg, prior_plane, *options):
-        n = info.batch_size
-        (agg,) = _batch_operands(n, in_dims[:1], (agg,))
-        if prior_plane is not None:
-            (prior_plane,) = _batch_operands(n, in_dims[1:2], (prior_plane,))
-        outs = _launch(agg, prior_plane, *options)
-        return outs, (0,) * len(outs)
+def _twin(agg, min_d, subpixel, uniqueness, prior_plane=None):
+    from ...models import stereo
+    cfg = stereo.StereoConfig(min_disparity=min_d, subpixel=subpixel,
+                              uniqueness_ratio=uniqueness)
+    return stereo._wta_scan(agg, cfg, prior_plane)
 
 
 def wta_scan(agg: torch.Tensor, min_d: int, subpixel: bool,
@@ -122,31 +86,5 @@ def wta_scan(agg: torch.Tensor, min_d: int, subpixel: bool,
     without a prior plane ((H, W) i32, planes in [0, D'), else the costs at
     its planes p - 1, p, p + 1).  A (B, D', H, W) volume, or a call under
     torch.func.vmap, runs one launch for the B streams."""
-    if agg.device.type == "cpu":
-        from ...models import stereo
-        cfg = stereo.StereoConfig(min_disparity=min_d, subpixel=subpixel,
-                                  uniqueness_ratio=uniqueness)
-        if agg.dim() == 4:
-            some = lambda on, d=0: d if on else None   # noqa: E731
-            return torch.func.vmap(
-                lambda a, p: stereo._wta_scan(a, cfg, p),
-                in_dims=(0, some(prior_plane is not None)),
-                out_dims=(0, 0, some(subpixel), some(subpixel),
-                          some(uniqueness > 0), 0,
-                          some(prior_plane is not None, (0, 0, 0))))(
-                    agg, prior_plane)
-        return stereo._wta_scan(agg, cfg, prior_plane)
-    if agg.device.type != "cuda":
-        raise ValueError(f"the WTA kernel runs on CUDA tensors, got "
-                         f"{agg.device}")
-    options = (min_d, subpixel, uniqueness)
-    if _in_vmap(*(t for t in (agg, prior_plane) if t is not None)):
-        outs = list(_Launch.apply(agg, prior_plane, *options))
-    else:
-        outs = list(_launch(agg, prior_plane, *options))
-    idx, best = outs.pop(0), outs.pop(0)
-    cm, cp = (outs.pop(0), outs.pop(0)) if subpixel else (None, None)
-    second = outs.pop(0) if uniqueness > 0 else None
-    best_rd = outs.pop(0)
-    return (idx, best, cm, cp, second, best_rd,
-            tuple(outs) if prior_plane is not None else None)
+    return kernel.dispatch(_twin, _launch_wta_scan, 3, agg, min_d, subpixel,
+                           uniqueness, prior_plane)

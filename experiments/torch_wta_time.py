@@ -44,7 +44,8 @@ def main() -> None:
     D, h, w = vol.shape
 
     def run(unroll):
-        return K._launch(vol, None, 1, True, 0.95, unroll=unroll)
+        # every output but the prior's costs (no prior plane: None)
+        return K._launch_wta_scan(vol, 1, True, 0.95, unroll=unroll)[:6]
 
     want = run(K.UNROLL)
     for u in VARIANTS:

@@ -198,9 +198,10 @@ def test_d192_census_route_equals_the_materialized_route(paths):
 
 def _spy(monkeypatch):
     """Record the census route's calls, the materialized route's volume
-    builds and every census volume with the file that asked for it."""
+    builds (`_cost_volume`) and every census volume with the file that
+    asked for it."""
     calls = dict(census=0, scan=0, volume=[])
-    real_vol, real_scan = S._census_volume, S._cost_volume_scan
+    real_vol, real_scan = S._census_volume, S._cost_volume
     real_agg = K.census_aggregate
     pkg = os.path.dirname(os.path.dirname(S.__file__))
 
@@ -218,7 +219,7 @@ def _spy(monkeypatch):
         return real_agg(*a, **kw)
 
     monkeypatch.setattr(S, "_census_volume", volume)
-    monkeypatch.setattr(S, "_cost_volume_scan", scan)
+    monkeypatch.setattr(S, "_cost_volume", scan)
     monkeypatch.setattr(K, "census_aggregate", agg)
     return calls
 
@@ -239,18 +240,22 @@ def test_census_route_builds_no_volume_outside_the_twin(monkeypatch):
     assert calls["volume"] and set(calls["volume"]) == {TWIN}
 
 
-@pytest.mark.parametrize("over,scan,volumes", [
-    (dict(max_disparity=129), 1, [MATCHER]),           # D' == 128
-    (dict(max_disparity=192, sgm_fused_census=False), 1, [MATCHER]),
-    (dict(max_disparity=192, cost="sad"), 1, []),
-    (dict(max_disparity=192, sgm_pallas=False), 0, [MATCHER])],
+@pytest.mark.parametrize("over,census,scan,volumes", [
+    (dict(max_disparity=129), 1, 0, [TWIN, TWIN]),     # D' == 128
+    (dict(max_disparity=192, sgm_fused_census=False), 0, 1, [MATCHER]),
+    (dict(max_disparity=192, cost="sad"), 0, 1, []),
+    (dict(max_disparity=192, sgm_pallas=False), 0, 1, [MATCHER])],
     ids=["d128", "fused_off", "sad", "kernels_off"])
-def test_other_configs_keep_the_materialized_route(monkeypatch, over, scan,
-                                                   volumes):
+def test_other_configs_keep_the_materialized_route(monkeypatch, over, census,
+                                                   scan, volumes):
+    """The fused census route off, SAD cost and the kernels off build the
+    volume in the matcher; D' = 128 takes the census route's B6 + B5 like
+    every D' up to 128 (`plane_route`), its only volumes the plain twin's,
+    one a family."""
     calls = _spy(monkeypatch)
     left, right = _pair(6, 200, 100, 7)
     S.disparity(left, right, S.StereoConfig(aggregation="sgm", **over))
-    assert calls["census"] == 0 and calls["scan"] == scan
+    assert calls["census"] == census and calls["scan"] == scan
     assert calls["volume"] == volumes
 
 

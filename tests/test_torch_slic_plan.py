@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 
+from densesurfelmapping_tpu_torch.ops.cuda import kernel
 from densesurfelmapping_tpu_torch.ops.cuda import slic as kslic
 
 SPS = list(range(2, 17))
@@ -252,9 +253,9 @@ def test_stream_bases_and_their_alignment():
 def test_wrappers_refuse_two_leading_axes():
     import torch
     with pytest.raises(ValueError, match=r"\(B, H, W\)"):
-        kslic._lead(torch.zeros((2, 2, 8, 8)))
-    assert kslic._lead(torch.zeros((8, 8))) == ()
-    assert kslic._lead(torch.zeros((3, 8, 8))) == (3,)
+        kernel.lead("image", torch.zeros((2, 2, 8, 8)), "H, W")
+    assert kernel.lead("image", torch.zeros((8, 8)), "H, W") == ((), 1)
+    assert kernel.lead("image", torch.zeros((3, 8, 8)), "H, W") == ((3,), 3)
 
 
 @pytest.mark.parametrize("sp", [6, 8, 16])

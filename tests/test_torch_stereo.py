@@ -187,6 +187,27 @@ def test_disparity_d192_matches_jax(paths, fused):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("paths", [4, 8])
+def test_disparity_d128_fused_matches_materialized_and_jax(paths):
+    """max_disparity 129 (D' 128, the census route's B6 + B5 like every D'
+    up to 128) equals the materialized volume's route and the JAX
+    package's, bitwise, on a small pair whose disparity, 120, lies near the
+    last plane."""
+    g = np.random.default_rng(6)
+    li = g.integers(0, 256, (14, 200)).astype(np.float32)
+    ri = np.roll(li, -120, 1)
+    kw = dict(aggregation="sgm", max_disparity=129, sgm_paths=paths)
+    want = np.asarray(jstereo.jitted_disparity(jstereo.StereoConfig(
+        **dict(kw, sgm_pallas=False)))(jnp.asarray(li), jnp.asarray(ri)))
+    left, right = torch.from_numpy(li), torch.from_numpy(ri)
+    got = tstereo.disparity(left, right, tstereo.StereoConfig(**kw))
+    volume = tstereo.disparity(left, right, tstereo.StereoConfig(
+        **kw, sgm_fused_census=False))
+    assert (want > 110).any()
+    assert torch.equal(got, volume)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("aggregation", ["sgm", "box"])
 def test_prior_rescue_matches_jax(pair, aggregation):
     li, ri, ld = pair

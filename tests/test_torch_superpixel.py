@@ -18,6 +18,7 @@ from densesurfelmapping_tpu.ops import superpixel as JS
 from densesurfelmapping_tpu.ops import windows as JW
 import densesurfelmapping_tpu_torch.config as tcfg
 from densesurfelmapping_tpu_torch.ops import superpixel as TS
+from densesurfelmapping_tpu_torch.ops.cuda import kernel
 from densesurfelmapping_tpu_torch.ops.cuda import slic as K
 
 torch.set_num_threads(1)
@@ -165,12 +166,12 @@ def test_kernel_wrappers_validate_inputs(cfgs):
     rc = (cfg.sp_rows, cfg.sp_cols)
     cpu = torch.device("cpu")
     ok = torch.zeros(rc)
-    assert K._check("x", ok, torch.float32, rc, cpu) == ok.data_ptr()
+    assert kernel.check("x", ok, torch.float32, rc, cpu) == ok.data_ptr()
     with pytest.raises(TypeError):
-        K._check("x", ok.double(), torch.float32, rc, cpu)
+        kernel.check("x", ok.double(), torch.float32, rc, cpu)
     with pytest.raises(ValueError):
-        K._check("x", ok[:, :-1], torch.float32, rc, cpu)
+        kernel.check("x", ok[:, :-1], torch.float32, rc, cpu)
     with pytest.raises(ValueError):
-        K._check("x", torch.zeros(rc[::-1]).T, torch.float32, rc, cpu)
+        kernel.check("x", torch.zeros(rc[::-1]).T, torch.float32, rc, cpu)
     with pytest.raises(ValueError):
-        K._prepare(cfg, cpu)
+        kernel.stream(cpu)
