@@ -6,14 +6,17 @@
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. device  - a CUDA card is required; its name and power limit are printed
-  2. build   - the SLIC, SGM and WTA kernels (densesurfelmapping_tpu_torch/
-               csrc/slic.cu, sgm.cu, wta.cu) are built with nvcc, in
-               parallel, and loaded
+  2. build   - the SLIC, SGM, WTA and plane-fit kernels
+               (densesurfelmapping_tpu_torch/csrc/slic.cu, sgm.cu, wta.cu,
+               planefit.cu) are built with nvcc, in parallel, and loaded
   3. kernels - each SLIC kernel against its plain PyTorch twin on the inputs
                of every run_slic sweep over a KITTI-size frame of the
                synthetic scene and over a 120 x 56 frame at sp 6 and 16,
                then its time per launch at KITTI and B1's device
-               operations per call
+               operations per call; the plane-fit kernel against its twin
+               (ok gate equal, normals within 1e-5 in cosine, positions
+               within 1e-5 m) on two KITTI frames and the 120 x 56 frame at
+               sp 6, 8 and 16, and its time per launch at KITTI
   4. sgm     - each SGM kernel against its plain twin on a KITTI-size stereo
                pair, 8 and 4 paths, on a 61 x 97 crop with 37 disparities
                from 3, and on a 24 x 1800 strip (bitwise, f32 and bf16
@@ -301,14 +304,16 @@ def bound(nbytes: float, ops: float) -> dict:
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from densesurfelmapping_tpu_torch.ops.cuda import build, sgm, slic, wta
+    from densesurfelmapping_tpu_torch.ops.cuda import (build, planefit, sgm,
+                                                       slic, wta)
 
     def timed(load):
         t0 = time.perf_counter()
         load()
         return time.perf_counter() - t0
 
-    mods = (("slic", slic), ("sgm", sgm), ("wta", wta))
+    mods = (("slic", slic), ("sgm", sgm), ("wta", wta),
+            ("planefit", planefit))
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         futs = {name: pool.submit(timed, mod._LIB.load) for name, mod in mods}
         secs = {name: f.result() for name, f in futs.items()}
@@ -415,6 +420,79 @@ def check_slic(config, device) -> dict:
     return d
 
 
+def planefit_diffs(config, device, pose, tag: str) -> dict:
+    """The plane-fit kernel against its plain twin on the SLIC output of
+    the synthetic scene's frame at `pose`: seeds whose `ok` gate differs,
+    and where both fit, the largest 1 - cos between the normals and the
+    largest position error (m); the fields of seeds that neither fits and
+    the sizes must be equal.  Tolerances of
+    tests/test_torch_planefit_kernel.py: ok equal, 1e-5, 1e-5 m."""
+    from densesurfelmapping_tpu_torch.ops import normals as N
+    from densesurfelmapping_tpu_torch.ops import superpixel as S
+    from densesurfelmapping_tpu_torch.ops.cuda import planefit as K
+    image, depth = scene_frame(config, pose, device)
+    seeds, asg = S.run_slic(config, image, depth)
+    ops = (config, depth, asg, seeds.x, seeds.y, seeds.mean_depth,
+           seeds.norm, seeds.pos, seeds.view_cos, seeds.size)
+    got, want = K.seed_planes(*ops), N.seed_plane_fields(*ops)
+    ok_k = (got[0] != seeds.norm).any(-1)
+    ok_t = (want[0] != seeds.norm).any(-1)
+    both, neither = ok_k & ok_t, ~ok_k & ~ok_t
+    kept = all(bool(torch.equal(g[neither], o[neither])) for g, o in zip(
+        got, (seeds.norm, seeds.pos, seeds.mean_depth, seeds.view_cos,
+              seeds.size)))
+    cos = (got[0][both] * want[0][both]).sum(-1).double()
+    d = dict(fitted=int(both.sum()), ok_differs=int((ok_k != ok_t).sum()),
+             one_minus_cos=float((1 - cos).max()),
+             pos_err=float((got[1][both] - want[1][both]).abs().max()),
+             size_equal=bool(torch.equal(got[4], want[4])), kept=kept)
+    require(d["ok_differs"] == 0 and d["kept"] and d["size_equal"]
+            and d["one_minus_cos"] <= 1e-5 and d["pos_err"] <= 1e-5,
+            f"planefit ({tag}): {d}")
+    say("kernels", f"planefit ({tag}): {d['fitted']} seeds fitted by both, "
+        f"ok equal, unfitted seeds kept and sizes bitwise; 1 - cos "
+        f"{d['one_minus_cos']:.3g} (bound 1e-5), positions within "
+        f"{d['pos_err']:.3g} m (bound 1e-5)")
+    return dict(d, ops=ops)
+
+
+def planefit_work(height: int, width: int, n_seeds: int) -> tuple:
+    """(bytes, operations) of one plane fit, as the benchmark's
+    `planefit_roofline` counts them (benchmark/metrics/planefit_roofline.py,
+    loaded by path: the metrics are files, not a package)."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parent / "benchmark" / "metrics"
+            / "planefit_roofline.py")
+    spec = importlib.util.spec_from_file_location("planefit_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.planefit_work(height, width, n_seeds)
+
+
+def phase_planefit(config, device) -> dict:
+    """The plane-fit kernel against its twin on two KITTI frames and the
+    120 x 56 frame at sp 6, 8 and 16; then its device time per launch on
+    the first KITTI frame beside its bound and the twin's time."""
+    from densesurfelmapping_tpu_torch.io import synthetic
+    from densesurfelmapping_tpu_torch.ops import normals as N
+    from densesurfelmapping_tpu_torch.ops.cuda import planefit as K
+    d = planefit_diffs(config, device, np.eye(4), "KITTI, identity pose")
+    d2 = planefit_diffs(config, device,
+                        synthetic.forward_trajectory(9, 0.4)[8],
+                        "KITTI, 3.2 m ahead")
+    for sp in (6, 8, 16):
+        planefit_diffs(slic_config(sp), device, np.eye(4),
+                       f"120 x 56, sp {sp}")
+    ops = d["ops"]
+    ba = planefit_work(config.height, config.width, config.num_seeds)
+    return timed(dict(
+        max_abs_err=max(d["pos_err"], d2["pos_err"]), bound_args=ba,
+        **bound(*ba)),
+        kernel_time(lambda: K.seed_planes(*ops), ("planefit_kernel",)),
+        cuda_time_ms(lambda: N.seed_plane_fields(*ops)))
+
+
 def phase_kernels(config, device) -> dict:
     """Each SLIC kernel against its plain twin over run_slic's sweeps, then
     its device time on the first sweep's inputs; returns the per-kernel
@@ -464,6 +542,7 @@ def phase_kernels(config, device) -> dict:
         max_abs_err=d["huber_err"], bound_args=ba, **bound(*ba)),
         kernel_time(lambda: K.slic_huber(*hargs), ("slic_huber_kernel",)),
         cuda_time_ms(lambda: S.huber_mean_depth(*hargs)))
+    out["planefit"] = phase_planefit(config, device)
     for name, rec in out.items():
         say("kernels", time_line(name, rec))
     # B1 zeroes its bool claims with a memset and writes them itself: two
@@ -1237,13 +1316,15 @@ def write_gray_png(path: str, img: np.ndarray) -> None:
 def counted(fn):
     """fn() with every kernel count set to 0 just before and read just
     after; returns (fn's result, {kernel: launches})."""
+    from densesurfelmapping_tpu_torch.ops.cuda import planefit as KP
     from densesurfelmapping_tpu_torch.ops.cuda import sgm as KS
     from densesurfelmapping_tpu_torch.ops.cuda import slic as K
     from densesurfelmapping_tpu_torch.ops.cuda import wta as KW
-    for mod in (K, KS, KW):
+    for mod in (K, KS, KW, KP):
         mod.reset_launch_counts()
     res = fn()
-    return res, dict(K.LAUNCHES, **KS.LAUNCHES, **KW.LAUNCHES)
+    return res, dict(K.LAUNCHES, **KS.LAUNCHES, **KW.LAUNCHES,
+                     **KP.LAUNCHES)
 
 
 # each wrapper's kernels, by the names of the profiler's kernel records
@@ -1257,7 +1338,8 @@ KERNEL_RECORDS = {
     "sgm_census_lines": ("CensusCost",),
     "sgm_census_y": ("census_y_kernel",),
     "sgm_census_x": ("census_x_kernel",),
-    "wta_scan": ("wta_scan_kernel",)}
+    "wta_scan": ("wta_scan_kernel",),
+    "planefit": ("planefit_kernel",)}
 
 
 def raw_device_records(prof) -> list:
@@ -2416,9 +2498,10 @@ def phase_multi(device, frames, smi: str) -> dict:
         f"memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; "
         f"banks {B} x 2^21 rows, the capture's scratch clone included)")
     require(ex["captures"] == 1, f"fleet: {ex['captures']} captures")
-    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0,
+    check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0, planefit=1,
                         **{k: cfg.sp_iters for k in SLIC}), N_ROUNDS,
-               f"fleet (SLIC {cfg.sp_iters}x per round, not x {B})")
+               f"fleet (SLIC {cfg.sp_iters}x and the plane fit once per "
+               f"round, not x {B})")
     require(multi.compactions > 0, "fleet: compaction never ran")
     rows = [fleet_rows(multi, k) for k in range(B)]
     for k, r in enumerate(rows):
@@ -3311,7 +3394,8 @@ def phase_graph(device, frames, pairs, smi: str) -> dict:
         cfg_f, frames, device, N_STREAMS, N_ROUNDS, sync_checked=True))
     add(ex["runs"])
     require(ex["captures"] == 1, f"fleet: {ex['captures']} captures")
-    check_runs(ex, dict(no_sgm, **slic), N_ROUNDS, "graphed fleet")
+    check_runs(ex, dict(no_sgm, planefit=1, **slic), N_ROUNDS,
+               "graphed fleet")
     ef, _ = drive_fleet(cfg_f, frames, device, N_STREAMS, N_ROUNDS,
                         cls=EagerFleet)
     shift = np.eye(4)
@@ -4722,7 +4806,7 @@ def main() -> None:
     launches = dict.fromkeys(("slic_assign", "slic_centroid", "slic_huber",
                               "sgm_axis_scan", "sgm_census_y",
                               "sgm_census_x", "sgm_census_lines",
-                              "wta_scan"), 0)
+                              "wta_scan", "planefit"), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -4742,8 +4826,9 @@ def main() -> None:
                 f"depth-fed drive: {ex['captures']} captures, "
                 f"{drv.frames_fused} frames")
         check_runs(ex, dict(sgm_census_x=0, sgm_census_y=0, sgm_axis_scan=0,
-                            **{k: cfg.sp_iters for k in SLIC}), N_FRAMES,
-                   f"depth-fed drive (SLIC {cfg.sp_iters}x per frame)")
+                            planefit=1, **{k: cfg.sp_iters for k in SLIC}),
+                   N_FRAMES, f"depth-fed drive (SLIC {cfg.sp_iters}x, the "
+                   f"plane fit once per frame)")
         rows_a = bank_to_numpy(drv.bank)
         stats = check_map(rows_a, drv, synthetic.default_scene().ground_y)
         say("drive", f"map: {stats['live']} live surfels, {stats['ground']} "
@@ -4863,6 +4948,17 @@ def main() -> None:
                      ms=rec["batched"]["us_n"] / 1e3,
                      bound_ms=rec["batched"]["bound_ms"],
                      bound_by=rec["bound_by"], max_abs_err=0.0)))
+    rec = records["planefit"]
+    kernels.append(dict(
+        name="planefit", route="cuda",
+        source="densesurfelmapping_tpu_torch/csrc/planefit.cu",
+        replaces="no pl.pallas_call: the JAX package's plain XLA plane fit "
+        "(densesurfelmapping_tpu/ops/normals.py)",
+        launches=launches["planefit"],
+        launches_counted_by="device runs: the profiler's kernel records",
+        max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ Counterpart of the JAX package's `ops/normals.py` (the reference's
      with a closed-form 4x4 solve.
 
 The reference accumulates the normal equations in float64; this runs float32
-with the same +5*I damping.
+with the same +5*I damping.  `seed_plane_fields` is the plain twin of the
+plane-fit CUDA kernel (`ops/cuda/planefit.py`, `csrc/planefit.cu`), which
+`compute_seed_planes` launches on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -154,23 +156,32 @@ def _huber_gauss_newton(points: torch.Tensor, mask: torch.Tensor,
                      dim=-1)
 
 
-def refine_seed_planes(config: SurfelMapConfig, seeds: SuperpixelState,
-                       assignment: torch.Tensor, depth_win: torch.Tensor,
-                       space: torch.Tensor, norms: torch.Tensor,
-                       geom=None) -> SuperpixelState:
+def seed_plane_fields(config: SurfelMapConfig, depth: torch.Tensor,
+                      assignment: torch.Tensor, x: torch.Tensor,
+                      y: torch.Tensor, mean_depth: torch.Tensor,
+                      norm: torch.Tensor, pos: torch.Tensor,
+                      view_cos: torch.Tensor, size: torch.Tensor, geom=None):
     """Per-seed robust plane fit (`calculate_sp_depth_norms_kernel`,
-    `fusion_functions.cpp:792-914`): gate on >=16 valid depths and >=80%
-    Huber inliers, average inlier pixel normals, refine with batched Huber
-    GN over inlier 3D positions, project the seed center onto the plane,
-    orient toward the camera."""
+    `fusion_functions.cpp:792-914`), the plain twin of the plane-fit kernel
+    (`ops/cuda/planefit.py`, which has its signature): gate
+    on >=16 valid depths and >=80% Huber inliers, average inlier pixel
+    normals, refine with batched Huber GN over inlier 3D positions, project
+    the seed center onto the plane, orient toward the camera.
+
+    Reads the padded (H, W) depth and assignment and the seed fields it
+    writes; returns the seeds' (norm, pos, mean_depth, view_cos, size), the
+    fields as given where a seed fails the gates."""
     sp = config.sp_size
     g = geom or device_geometry(config, assignment.device)
-    rows, cols = seeds.x.shape
+    rows, cols = x.shape
     S = rows * cols
     K = 4 * sp * sp
     hr = float(config.profile.huber_range)
     cam = config.camera
 
+    space = space_map(config, depth, geom)
+    norms = pixel_normals(config, space, geom)
+    depth_win = W.extract_windows(depth, sp)
     assign_win = W.extract_windows(assignment, sp)
     # this pass admits the last row/column (flat-index bound in the C++,
     # fusion_functions.cpp:815-817), unlike update_seeds' clamped window
@@ -182,8 +193,8 @@ def refine_seed_planes(config: SurfelMapConfig, seeds: SuperpixelState,
                         for i in range(3))
 
     # squared pixel distance to the (float) seed centroid, over ALL members
-    ex = g["win_x"] - seeds.x[..., None]
-    ey = g["win_y"] - seeds.y[..., None]
+    ex = g["win_x"] - x[..., None]
+    ey = g["win_y"] - y[..., None]
     dist = ex * ex + ey * ey
     max_dist = torch.where(member, dist, 0.0).amax(dim=-1)
 
@@ -191,7 +202,7 @@ def refine_seed_planes(config: SurfelMapConfig, seeds: SuperpixelState,
     nd = valid_d.sum(dim=-1).float()
 
     # Huber inliers around the seed's (already Newton-refined) mean depth
-    resid = seeds.mean_depth[..., None] - depth_win
+    resid = mean_depth[..., None] - depth_win
     inlier = valid_d & (resid < hr) & (resid > -hr)
     ni = inlier.sum(dim=-1).float()
 
@@ -211,37 +222,35 @@ def refine_seed_planes(config: SurfelMapConfig, seeds: SuperpixelState,
     plane = plane.reshape(rows, cols, 4)
 
     # project the seed centroid (at mean depth) onto the fitted plane
-    avg = geometry.back_project(seeds.x, seeds.y, seeds.mean_depth,
-                                cam.fx, cam.fy, cam.cx, cam.cy)
+    avg = geometry.back_project(x, y, mean_depth, cam.fx, cam.fy, cam.cx,
+                                cam.cy)
     k = -(avg * plane[..., :3]).sum(dim=-1) - plane[..., 3]
     avg = avg + k[..., None] * plane[..., :3]
-    mean_depth = avg[..., 2]
 
-    view_cos = -(plane[..., :3] * avg).sum(dim=-1) \
+    view = -(plane[..., :3] * avg).sum(dim=-1) \
         / _norm(avg).clamp_min(1e-20)
-    flip = view_cos < 0
+    flip = view < 0
     norm_out = torch.where(flip[..., None], -plane[..., :3], plane[..., :3])
-    view_cos = view_cos.abs()
 
     okn = ok[..., None]
-    return seeds.replace(
-        norm=torch.where(okn, norm_out, seeds.norm),
-        pos=torch.where(okn, avg, seeds.pos),
-        mean_depth=torch.where(ok, mean_depth, seeds.mean_depth),
-        view_cos=torch.where(ok, view_cos, seeds.view_cos),
-        size=torch.where(ok, torch.sqrt(max_dist), seeds.size),
-    )
+    return (torch.where(okn, norm_out, norm),
+            torch.where(okn, avg, pos),
+            torch.where(ok, avg[..., 2], mean_depth),
+            torch.where(ok, view.abs(), view_cos),
+            torch.where(ok, torch.sqrt(max_dist), size))
 
 
 def compute_seed_planes(config: SurfelMapConfig, seeds: SuperpixelState,
                         assignment: torch.Tensor, depth: torch.Tensor,
-                        geom=None):
-    """`calculate_norms` composite: space map + pixel normals + plane fit.
-    Returns (seeds', space (H,W,3)) — space is reused by the fusion gates.
-    geom: a column slab's geometry override (`ops/superpixel.py`)."""
-    space = space_map(config, depth, geom)
-    norms = pixel_normals(config, space, geom)
-    depth_win = W.extract_windows(depth, config.sp_size)
-    seeds = refine_seed_planes(config, seeds, assignment, depth_win,
-                               space, norms, geom)
-    return seeds, space
+                        geom=None) -> SuperpixelState:
+    """`calculate_norms` composite (space map, pixel normals, plane fit):
+    the seeds with their planes.  On a CUDA tensor the plane-fit kernel
+    (`ops/cuda/planefit.py`) runs it in one launch, on a CPU tensor its
+    plain twin `seed_plane_fields`.  geom: a column slab's geometry
+    override (`parallel/frame_sharding.py`)."""
+    from .cuda import planefit
+    norm, pos, mean_depth, view_cos, size = planefit.seed_planes(
+        config, depth, assignment, seeds.x, seeds.y, seeds.mean_depth,
+        seeds.norm, seeds.pos, seeds.view_cos, seeds.size, geom)
+    return seeds.replace(norm=norm, pos=pos, mean_depth=mean_depth,
+                         view_cos=view_cos, size=size)

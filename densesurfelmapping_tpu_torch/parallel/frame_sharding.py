@@ -208,8 +208,8 @@ def _slab_segmentation(config, n_slabs, image, depth, devices):
         def segment(img, dep, g=g):
             seeds, assignment = superpixel.run_slic(config, img, dep,
                                                     use_kernels=False, geom=g)
-            seeds, _ = normals.compute_seed_planes(config, seeds, assignment,
-                                                   dep, geom=g)
+            seeds = normals.compute_seed_planes(config, seeds, assignment,
+                                                dep, geom=g)
             return (sharding._fields(_columns(seeds, halo, halo + own)),
                     assignment[:, halo * sp:(halo + own) * sp])
         owned.append(torch.func.vmap(segment)(img_s, dep_s))

@@ -426,7 +426,7 @@ def _fuse_row(config: SurfelMapConfig, row: List[SurfelBank], front,
             if seg is None:
                 seeds, assignment = superpixel.run_slic(config, frame.image,
                                                         frame.depth)
-                seeds, _ = normals.compute_seed_planes(
+                seeds = normals.compute_seed_planes(
                     config, seeds, assignment, frame.depth)
             else:
                 seeds, assignment = SuperpixelState(**seg[0]), seg[1]

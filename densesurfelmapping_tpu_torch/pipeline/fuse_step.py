@@ -45,8 +45,8 @@ def fuse_frame(config: SurfelMapConfig, bank: SurfelBank, frame: FrameInput,
         seeds, assignment = superpixel.run_slic(config, frame.image,
                                                 frame.depth)
     with timing.phase("planefit", dev):
-        seeds, _space = normals.compute_seed_planes(
-            config, seeds, assignment, frame.depth)
+        seeds = normals.compute_seed_planes(config, seeds, assignment,
+                                            frame.depth)
 
     with timing.phase("fuse", dev):
         fused = fusion.fuse_surfels(
@@ -801,5 +801,5 @@ def segmentation_only(config: SurfelMapConfig, image: torch.Tensor,
     the analogue of the reference's `debug_show`): padded (H, W) f32 image
     and depth -> (seeds, assignment)."""
     seeds, assignment = superpixel.run_slic(config, image, depth)
-    seeds, _ = normals.compute_seed_planes(config, seeds, assignment, depth)
+    seeds = normals.compute_seed_planes(config, seeds, assignment, depth)
     return seeds, assignment

@@ -54,9 +54,9 @@ def _state(s) -> SuperpixelState:
 
 def test_seed_planes_match_jax(case):
     cfg, depth, (seeds, asg, want, space) = case
-    got, tspace = TN.compute_seed_planes(cfg, _state(seeds),
-                                         torch.from_numpy(asg),
-                                         torch.from_numpy(depth))
+    got = TN.compute_seed_planes(cfg, _state(seeds), torch.from_numpy(asg),
+                                 torch.from_numpy(depth))
+    tspace = TN.space_map(cfg, torch.from_numpy(depth))
     np.testing.assert_allclose(tspace.numpy(), space, rtol=1e-6, atol=1e-6)
 
     ok_j = np.any(want.norm != 0, axis=-1)
